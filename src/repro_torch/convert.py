@@ -1,0 +1,52 @@
+"""Carry parameters across between the JAX package and the port.
+
+The JAX package keeps parameters as nested dicts of arrays; the port keeps
+the same key paths with tensors.  Layouts:
+
+* conv ``w``: HWIO in JAX (``lax.conv_general_dilated`` with NHWC/HWIO) and
+  OIHW here (``F.conv2d``) — every 4-d leaf named ``w`` is permuted;
+* linear ``w``: ``(d_in, d_out)`` on both sides (``x @ w + b``), unchanged;
+* every other leaf (biases, GroupNorm scale/bias) is unchanged.
+
+Both directions go through numpy, so neither package imports the other.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _is_conv(path, a) -> bool:
+    return path[-1] == "w" and np.ndim(a) == 4
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def from_numpy(params, device, dtype=None):
+    """Nested dict of numpy arrays in the JAX layout -> dict of tensors in
+    the port's layout on ``device``."""
+    def leaf(path, a):
+        a = np.asarray(a)
+        if _is_conv(path, a):
+            a = a.transpose(3, 2, 0, 1)              # HWIO -> OIHW
+        t = torch.from_numpy(np.array(a, copy=True))
+        return t.to(device=device, dtype=dtype or t.dtype)
+    return _map_with_path(leaf, params)
+
+
+def to_numpy(params):
+    """Dict of tensors in the port's layout -> nested dict of numpy arrays
+    in the JAX layout."""
+    def leaf(path, t):
+        a = t.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            a = a.float()
+        a = a.numpy()
+        if _is_conv(path, a):
+            a = a.transpose(2, 3, 1, 0)              # OIHW -> HWIO
+        return np.ascontiguousarray(a)
+    return _map_with_path(leaf, params)
