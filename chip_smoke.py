@@ -8,13 +8,15 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. build    — compile the port's CUDA kernels with nvcc for sm_90a;
-2. kernels  — hold each kernel against its plain PyTorch version on the
-              card, bit for bit in fp32 and bf16, at the main path's leaf
-              shapes (the paper CNN at width 32, its 16 leaves stacked over
-              K=8 clients) and at ResNet-18's largest leaf; the weighted
-              reduce also at K=96 bf16 against an fp64 oracle (1 bf16 ulp);
-              then time each kernel, its plain version and, where one
-              PyTorch call computes the same function, that call;
+2. kernels  — hold each of the seven kernels against its plain PyTorch
+              version on the card, bit for bit in fp32 and bf16, at the
+              main path's leaf shapes (the paper CNN at width 32, its 16
+              leaves stacked over K=8 clients) and at ResNet-18's largest
+              leaf stacked over K=8; the weighted and the sparse reduce
+              also at K=96 bf16 against an fp64 oracle (1 bf16 ulp), the
+              sparse reduce also on duplicate indices; then time each
+              kernel, its plain version and, where one PyTorch call
+              computes the same function, that call;
 3. main     — the paper CNN at width 32 on 32x32x3 images at CIFAR-10
               cardinality (50000/10000), sort-and-partition s=2 over 100
               clients, FedConfig defaults (|S|=8, H=8, nesterov) but eta 0.01,
@@ -25,15 +27,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               off) against the CPU from the same parameters and batches:
               two one-step rounds must give the same update within 1e-4
               relative, one main-path round within 5e-2;
-4. resnet   — one FedADC round of ResNet-18 with 100 classes (|S|=8, H=2)
-              and the kernels timed over its 76 leaves;
-5. quickstart — the port's quickstart (40 rounds of FedAvg and FedADC).
+4. wire     — the same CNN main path on the compressed wire, 4 FedADC
+              rounds under the plain wire (the baseline, same seed and
+              conditions) and under each of (a) top-k 10% with EF, dense
+              wire; (b)
+              the same on the sparse (value, index) wire with the sparse
+              aggregate; (c) QSGD 4 bits up, delta+QSGD 8 bits down; (d)
+              the lossless delta downlink with per-client unicast: exact
+              launch counts, measured bytes equal to the configuration's
+              wire sizes, (a) and (b) the same update, the round time and
+              a profiled round's idle share each;
+5. resnet   — one FedADC round of ResNet-18 with 100 classes (|S|=8, H=2),
+              the kernels timed over its 76 leaves, then one round each
+              under the wires (b) and (c);
+6. quickstart — the port's quickstart (40 rounds of FedAvg and FedADC).
 
 Every time is measured here, on the card named in the output.  Bounds use
 the H100 SXM data sheet: 3.35 TB/s of HBM and 67 TFLOP/s of fp32 outside
 the tensor cores.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -47,10 +61,30 @@ TPU_KERNEL = {
     "local_update": "src/repro/kernels/fedadc_update.py:66",
     "server_update": "src/repro/kernels/fedadc_update.py:71",
     "weighted_reduce": "src/repro/kernels/weighted_reduce.py:45",
+    "threshold_select": "src/repro/kernels/compress.py:85",
+    "qsgd": "src/repro/kernels/compress.py:80",
+    "sparse_reduce": "src/repro/kernels/sparse_reduce.py:53",
 }
-SOURCE = "src/repro_torch/csrc/fedadc_kernels.cu"
+UPDATE_SOURCE = "src/repro_torch/csrc/fedadc_kernels.cu"
+WIRE_SOURCE = "src/repro_torch/csrc/compress_kernels.cu"
+SOURCE = {name: WIRE_SOURCE if name in ("threshold_select", "qsgd",
+                                        "sparse_reduce") else UPDATE_SOURCE
+          for name in TPU_KERNEL}
 K = 8
 ETA = 0.01
+TOPK_FRAC = 0.1
+# the wire configurations of phase 4, on top of the main path's FedConfig
+WIRES = {
+    "plain": {},          # the uncompressed wire, the phase's baseline
+    "a_topk_dense": dict(compressor="topk", topk_frac=TOPK_FRAC),
+    "b_topk_sparse": dict(compressor="topk", topk_frac=TOPK_FRAC,
+                          sparse_uplink=True, sparse_aggregate=True),
+    "c_qsgd_delta_qsgd": dict(compressor="qsgd", qsgd_bits=4,
+                              downlink_compressor="delta+qsgd",
+                              downlink_qsgd_bits=8),
+    "d_delta_unicast": dict(downlink_compressor="delta",
+                            downlink_unicast=True),
+}
 
 
 def log(*a):
@@ -72,16 +106,26 @@ def cuda_ms(torch, fn, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def topk_k(n):
+    return max(1, math.ceil(TOPK_FRAC * n))
+
+
 def bound(kernel, sizes, k=K):
     """(bound_ms, bound_by) for one sweep of `kernel` over leaves of the
     given element counts, fp32: each input read once, each output written
-    once, against the HBM rate and the fp32 rate."""
+    once, against the HBM rate and the fp32 rate.  The sparse reduce reads
+    the K top-k wires (value + 4-byte index per pair, k = ⌈0.1·n⌉ per
+    leaf) and writes the fp32 leaf."""
     n = sum(sizes)
+    pairs = k * sum(topk_k(m) for m in sizes)
     nbytes, flops = {
         "fused_axpy": (3 * 4 * k * n, 2 * k * n),
         "local_update": (4 * 4 * k * n, 3 * k * n),
         "server_update": (5 * 4 * n, 4 * n),
         "weighted_reduce": (4 * (k + 1) * n, 2 * k * n),
+        "threshold_select": (3 * 4 * k * n, 2 * k * n),
+        "qsgd": (4 * 4 * k * n, 9 * k * n),
+        "sparse_reduce": (8 * pairs + 4 * n, 2 * pairs),
     }[kernel]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -127,6 +171,122 @@ def sweeps(torch, FU, WR, ref, shapes, dtype, gen):
     }
 
 
+def wire_sweeps(torch, CP, SR, ref, shapes, dtype, gen):
+    """The three wire kernels as `sweeps` gives the update kernels: per
+    kernel (kernel sweep, plain sweep, library sweep or None) over leaves of
+    `shapes` stacked over K clients, on random operands in `dtype`; the
+    reduce takes each leaf's K top-k wires (unique indices per client)."""
+    dev = "cuda"
+    vs = [torch.randn((K, *s), generator=gen).to(dev, dtype) for s in shapes]
+    us = [torch.rand((K, *s), generator=gen).to(dev, dtype) for s in shapes]
+    taus = [torch.topk(v.reshape(K, -1).abs(), topk_k(v[0].numel()),
+                       dim=1).values[:, -1].contiguous() for v in vs]
+    scales = [torch.amax(v.reshape(K, -1).abs(), dim=1) for v in vs]
+    wires = []
+    for v in vs:
+        flat = v.reshape(K, -1)
+        idx = torch.topk(flat.abs(), topk_k(flat.shape[1]), dim=1).indices
+        wires.append((torch.gather(flat, 1, idx).contiguous(),
+                      idx.to(torch.int32).contiguous(), tuple(v.shape[1:])))
+    w = torch.rand(K, generator=gen).to(dev)
+    zero = torch.zeros((), device=dev, dtype=dtype)
+    # the library yardstick of the reduce: index_add_ of the premultiplied
+    # pairs into one preallocated fp32 buffer per leaf
+    lib_pairs = [((w[:, None] * vals.float()).reshape(-1),
+                  idx.reshape(-1).long(),
+                  torch.zeros(math.prod(shape), device=dev))
+                 for vals, idx, shape in wires]
+    return {
+        "threshold_select": (
+            lambda: [CP.threshold_select(v, t) for v, t in zip(vs, taus)],
+            lambda: [ref.topk_threshold_select(v, t)
+                     for v, t in zip(vs, taus)],
+            lambda: [torch.where(v.abs() >= t.reshape((K,) + (1,) * (
+                v.dim() - 1)), v, zero) for v, t in zip(vs, taus)]),
+        "qsgd": (
+            lambda: [CP.qsgd(v, u, sc, 15)
+                     for v, u, sc in zip(vs, us, scales)],
+            lambda: [ref.qsgd_quantize(v, u, sc, 15)
+                     for v, u, sc in zip(vs, us, scales)],
+            None),
+        "sparse_reduce": (
+            lambda: [SR.sparse_reduce(vals, idx, w, shape, dtype)
+                     for vals, idx, shape in wires],
+            lambda: [ref.sparse_weighted_delta_reduce(vals, idx, w, shape,
+                                                      dtype)
+                     for vals, idx, shape in wires],
+            lambda: [buf.index_add_(0, i, wv) for wv, i, buf in lib_pairs]),
+    }
+
+
+def profile_round(torch, sim, round_s, tag, top=12):
+    """Profile one more round of `sim`: device time by kernel, and the idle
+    share against the median of the unprofiled rounds after the first."""
+    inputs = sim.next_round_inputs()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sim.run_round(*inputs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (the kernels), so no time counts twice
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    steady_ms = sorted(round_s[1:])[len(round_s[1:]) // 2] * 1e3
+    if busy_ms > 0:
+        log(f"{tag}: kernels busy {busy_ms:.3f} ms in {len(rows)} kinds; "
+            f"profiled round wall {wall_ms:.3f} ms; unprofiled median round "
+            f"{steady_ms:.3f} ms; idle share {1 - busy_ms / steady_ms:.3f} "
+            f"of the unprofiled round")
+        for key, ms, count in rows[:top]:
+            log(f"{tag}:   {ms:9.3f} ms  x{count:<5} {key[:90]}")
+    else:
+        log(f"{tag}: the profiler recorded no device time (not measured)")
+
+
+def expected_wire_launches(tag, rounds, n_leaves, h_steps):
+    """The launches `rounds` nesterov FedADC rounds make on wire `tag`."""
+    per_round = {"fused_axpy": 2 * h_steps * n_leaves, "local_update": 0,
+                 # every wire but (b) aggregates dense
+                 "server_update": n_leaves,
+                 "weighted_reduce": 0 if tag == "b_topk_sparse" else n_leaves,
+                 "threshold_select": n_leaves if tag == "a_topk_dense" else 0,
+                 # QSGD on the uplink and on the θ delta of the downlink
+                 # (FedADC's ctx is derived from it, not sent)
+                 "qsgd": 2 * n_leaves if tag == "c_qsgd_delta_qsgd" else 0,
+                 "sparse_reduce": n_leaves if tag == "b_topk_sparse" else 0}
+    return {name: rounds * n for name, n in per_round.items()}
+
+
+def expected_downlink_bytes(fed, transport, picks_per_round):
+    """Measured downlink bytes of the rounds' dispatches under `fed`,
+    recomputed from the wire sizes: multicast charges every client the
+    steady payload, with round 0 of the delta family at the full broadcast;
+    unicast charges fresh clients 0, catch-ups within the resync horizon the
+    delta payload and the rest the full broadcast."""
+    steady, full = transport._down_nbytes, transport._down_raw
+    total, last_seen = 0, {}
+    for version, picks in enumerate(picks_per_round):
+        for c in map(int, picks):
+            if not fed.downlink_unicast:
+                delta_family = fed.downlink_compressor.startswith("delta")
+                total += full if (version == 0 and delta_family) else steady
+                continue
+            last = last_seen.get(c)
+            if last is None or version - last > fed.resync_horizon:
+                total += full
+            elif version != last:
+                total += steady
+            last_seen[c] = version
+    return total
+
+
 def max_err(got, want):
     flat = []
     for g, p in zip(got, want):
@@ -154,7 +314,9 @@ def main():
     from repro_torch.data.synthetic import make_image_dataset
     from repro_torch.federated.simulator import FederatedSimulator, SimConfig
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import compress as CP
     from repro_torch.kernels import fedadc_update as FU
+    from repro_torch.kernels import sparse_reduce as SR
     from repro_torch.kernels import weighted_reduce as WR
     from repro_torch.models.vision import cnn_init
 
@@ -177,10 +339,13 @@ def main():
                                       device="cpu"))
     resnet_leaf = [(512, 512, 3, 3)]
     errs = {name: 0.0 for name in ops.KERNELS}
+
+    def all_sweeps(shapes, dtype):
+        return {**sweeps(torch, FU, WR, ref, shapes, dtype, gen),
+                **wire_sweeps(torch, CP, SR, ref, shapes, dtype, gen)}
     for shapes in (cnn_shapes, resnet_leaf):
         for dtype in (torch.float32, torch.bfloat16):
-            for name, (kern, plain, _) in sweeps(torch, FU, WR, ref, shapes,
-                                                 dtype, gen).items():
+            for name, (kern, plain, _) in all_sweeps(shapes, dtype).items():
                 e = max_err(kern(), plain())
                 torch.cuda.synchronize()
                 log(f"check {name} {dtype} {len(shapes)} leaves: "
@@ -201,11 +366,44 @@ def main():
     if worst > 2.0 ** -8:
         raise AssertionError("weighted_reduce K=96 bf16 misses 1 bf16 ulp")
     del d64, d_bf16, oracle
+    # the sparse reduce: K=96 bf16 top-k wires of the largest leaf against
+    # an fp64 oracle, then duplicate indices within a client (pair order)
+    n_big = 2359296
+    k_big = topk_k(n_big)
+    vals = (1.0 + 0.05 * torch.randn((96, k_big), generator=gen)).to(
+        torch.bfloat16)
+    idx = torch.stack([torch.randperm(n_big, generator=gen)[:k_big]
+                       for _ in range(96)])
+    w96 = torch.rand(96, generator=gen) * 0.8 + 0.2
+    oracle = torch.zeros(n_big, dtype=torch.float64).index_add_(
+        0, idx.reshape(-1), (w96.double()[:, None] * vals.double()).reshape(-1))
+    got = SR.sparse_reduce(vals.cuda(), idx.to("cuda", torch.int32),
+                           w96.cuda(), (n_big,), torch.float32).double().cpu()
+    hit = oracle != 0
+    worst = ((got - oracle).abs()[hit] / oracle.abs()[hit]).max().item()
+    log(f"check sparse_reduce bf16 K=96 k={k_big} vs fp64: max rel err "
+        f"{worst} (bar 2**-8), off-support sum {got[~hit].abs().sum().item()}")
+    if worst > 2.0 ** -8 or got[~hit].any():
+        raise AssertionError("sparse_reduce K=96 bf16 misses 1 bf16 ulp")
+    dup_v = torch.randn((8, 4096), generator=gen).cuda()
+    dup_i = torch.randint(0, 997, (8, 4096), generator=gen).to("cuda",
+                                                              torch.int32)
+    for dt in (torch.float32, torch.bfloat16):
+        e = max_err([SR.sparse_reduce(dup_v.to(dt), dup_i, w96[:8].cuda(),
+                                      (997,), dt)],
+                    [ref.sparse_weighted_delta_reduce(
+                        dup_v.to(dt), dup_i, w96[:8].cuda(), (997,), dt)])
+        log(f"check sparse_reduce {dt} duplicate indices (4096 pairs into "
+            f"997 elements per client): max |kernel - plain| = {e}")
+        if e != 0.0:
+            raise AssertionError("sparse_reduce differs from its plain "
+                                 "version on duplicate indices")
+    del vals, idx, oracle, got
 
     cnn_sizes = [int(torch.Size(s).numel()) for s in cnn_shapes]
     timed = {}
-    for name, (kern, plain, lib) in sweeps(torch, FU, WR, ref, cnn_shapes,
-                                           torch.float32, gen).items():
+    for name, (kern, plain, lib) in all_sweeps(cnn_shapes,
+                                               torch.float32).items():
         b_ms, b_by = bound(name, cnn_sizes)
         timed[name] = {"ms": cuda_ms(torch, kern),
                        "plain_ms": cuda_ms(torch, plain),
@@ -214,8 +412,8 @@ def main():
         log(f"time {name} over the CNN's {len(cnn_sizes)} leaves (fp32"
             f"{', K=8' if name != 'server_update' else ''}): "
             f"{json.dumps(timed[name])}")
-    for name, (kern, plain, lib) in sweeps(torch, FU, WR, ref, resnet_leaf,
-                                           torch.float32, gen).items():
+    for name, (kern, plain, lib) in all_sweeps(resnet_leaf,
+                                               torch.float32).items():
         b_ms, b_by = bound(name, [2359296])
         log(f"time {name} on ResNet-18's largest leaf (2359296): "
             f"ms={cuda_ms(torch, kern)} plain_ms={cuda_ms(torch, plain)} "
@@ -239,7 +437,8 @@ def main():
     expected = {"fused_axpy": 5 * 2 * H * n_leaves + H * n_leaves,
                 "local_update": H * n_leaves,
                 "server_update": 5 * n_leaves + n_leaves,
-                "weighted_reduce": 5 * n_leaves + 2 * n_leaves}
+                "weighted_reduce": 5 * n_leaves + 2 * n_leaves,
+                "threshold_select": 0, "qsgd": 0, "sparse_reduce": 0}
     ops.reset_launch_counts()
     sim = FederatedSimulator(fed, sim_cfg, x, y, xt, yt, parts)
     round_s = []
@@ -273,37 +472,14 @@ def main():
             raise AssertionError(f"main: bad result {hist[-1]}")
     launches = ops.launch_counts()
     log(f"main: launches {launches}, expected {expected}")
-    if launches != expected or min(launches.values()) == 0:
+    update_kernels = ("fused_axpy", "local_update", "server_update",
+                      "weighted_reduce")
+    if launches != expected or min(launches[n] for n in update_kernels) == 0:
         raise AssertionError("main: kernel launches differ from the count "
                              "the rounds should make")
 
     # one profiled FedADC round: device time by kernel and the idle share
-    inputs = sim.next_round_inputs()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        sim.run_round(*inputs)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (the kernels), so no time counts twice
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    steady_ms = sorted(round_s[1:])[len(round_s[1:]) // 2] * 1e3
-    if busy_ms > 0:
-        log(f"profile: kernels busy {busy_ms:.3f} ms in {len(rows)} kinds; "
-            f"profiled round wall {wall_ms:.3f} ms; unprofiled median round "
-            f"{steady_ms:.3f} ms; idle share {1 - busy_ms / steady_ms:.3f} "
-            f"of the unprofiled round")
-        for key, ms, count in rows[:12]:
-            log(f"profile:   {ms:9.3f} ms  x{count:<5} {key[:90]}")
-    else:
-        log("profile: the profiler recorded no device time (not measured)")
+    profile_round(torch, sim, round_s, "profile")
 
     # the card (TF32 off) against the CPU from the same parameters and
     # batches, compared on the update Δθ = θ − θ_0 over the whole model:
@@ -345,7 +521,77 @@ def main():
             raise AssertionError(f"card and CPU disagree on {what}")
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
-    # -- 4. ResNet-18 at CIFAR-100 shape ------------------------------------
+    # -- 4. the compressed wire on the main path ------------------------------
+    # the first round of each wire runs cuDNN's deterministic algorithms, so
+    # (a) and (b) see bit-identical deltas and differ only by their wire;
+    # the later rounds, which are timed, run the library defaults
+    cudnn_det = torch.backends.cudnn.deterministic
+    params_w0 = cnn_init(11, width=32, image_size=32, device="cpu")
+    wire_launches = {n: 0 for n in ("threshold_select", "qsgd",
+                                    "sparse_reduce")}
+    first_update = {}
+    R = 4
+    for tag, wkw in WIRES.items():
+        fed_w = FedConfig(eta=ETA, **wkw)
+        sim_w = FederatedSimulator(
+            fed_w, SimConfig(model="cnn", n_classes=10, rounds=R,
+                             eval_every=R, cnn_width=32, seed=11),
+            x, y, xt, yt, parts,
+            params=T.tree_map(lambda t: t.clone(), params_w0))
+        ops.reset_launch_counts()
+        round_s, picks_all = [], []
+        for r in range(R):
+            torch.backends.cudnn.deterministic = cudnn_det if r else True
+            inputs = sim_w.next_round_inputs()
+            picks_all.append(inputs[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = sim_w.run_round(*inputs)
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+            if not torch.isfinite(loss):
+                raise AssertionError(f"wire {tag}: non-finite loss {loss}")
+            if len(round_s) == 1:
+                first_update[tag] = [
+                    (a.cpu() - b).double() for a, b in
+                    zip(T.leaves(sim_w.params), T.leaves(params_w0))]
+        counts = ops.launch_counts()
+        want = expected_wire_launches(tag, R, n_leaves, H)
+        log(f"wire {tag}: round seconds {round_s}, last loss {float(loss)}, "
+            f"accuracy {sim_w.evaluate()}")
+        log(f"wire {tag}: launches {counts}, expected {want}")
+        if counts != want:
+            raise AssertionError(f"wire {tag}: kernel launches differ from "
+                                 f"the count the rounds should make")
+        for name in wire_launches:
+            wire_launches[name] += counts[name]
+        tr = sim_w.transport
+        up_want = R * K * tr.uplink_wire_nbytes(sim_w.params)
+        down_want = expected_downlink_bytes(fed_w, tr, picks_all)
+        log(f"wire {tag}: uplink bytes {sim_w.uplink_bytes} (wire sizes "
+            f"give {up_want}, raw {sim_w.uplink_bytes_raw}); downlink bytes "
+            f"{sim_w.downlink_bytes} (wire sizes give {down_want}, raw "
+            f"{sim_w.downlink_bytes_raw}); catch-ups {sim_w.refs.catchups}, "
+            f"resyncs {sim_w.refs.resyncs}")
+        if (sim_w.uplink_bytes, sim_w.downlink_bytes) != (up_want,
+                                                          down_want):
+            raise AssertionError(f"wire {tag}: measured bytes differ from "
+                                 f"the wire sizes")
+        profile_round(torch, sim_w, round_s, f"wire {tag} profile", top=8)
+    # the first round's update under (a) and (b), from the same parameters
+    # and batches: the reconstructions are equal except where magnitudes tie
+    # at the threshold (the dense select keeps every tied entry, the sparse
+    # wire exactly k: one τ-sized entry among a leaf's k ≥ 1 kept), and both
+    # aggregates sum in fp32 in client order
+    ua, ub = first_update["a_topk_dense"], first_update["b_topk_sparse"]
+    err = math.sqrt(sum(((a - b) ** 2).sum().item() for a, b in zip(ua, ub))
+                    / sum((a ** 2).sum().item() for a in ua))
+    log(f"wire: (a) dense vs (b) sparse top-k, first round's update: "
+        f"|dθ_a - dθ_b| / |dθ_a| = {err} (bar 1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError("wire: dense and sparse top-k disagree")
+
+    # -- 5. ResNet-18 at CIFAR-100 shape ------------------------------------
     x100, y100, xt100, yt100 = make_image_dataset(50000, 10000, 100,
                                                   image_size=32)
     parts100 = dirichlet_partition(y100, n_clients=100, alpha=0.3)
@@ -377,7 +623,34 @@ def main():
             f"library_ms={cuda_ms(torch, lib, iters=10) if lib else None} "
             f"bound_ms={b_ms} ({b_by})")
 
-    # -- 5. the port's quickstart -------------------------------------------
+    # ResNet-18 on the sparse top-k wire and on QSGD with the delta+QSGD
+    # downlink: one round each after a first one that pays for start-up
+    for tag in ("b_topk_sparse", "c_qsgd_delta_qsgd"):
+        s = FederatedSimulator(FedConfig(local_steps=2, eta=ETA,
+                                         **WIRES[tag]),
+                               SimConfig(model="resnet18", n_classes=100,
+                                         rounds=1, eval_every=1),
+                               x100, y100, xt100, yt100, parts100)
+        ops.reset_launch_counts()
+        for r in range(2):
+            inputs = s.next_round_inputs()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = s.run_round(*inputs)
+            torch.cuda.synchronize()
+            log(f"resnet18 wire {tag}: round {r + 1} "
+                f"{time.perf_counter() - t0:.3f}s, loss {float(loss)}")
+            if not torch.isfinite(loss):
+                raise AssertionError(f"resnet18 wire {tag}: non-finite loss")
+        counts = ops.launch_counts()
+        want = expected_wire_launches(tag, 2, len(rshapes), 2)
+        log(f"resnet18 wire {tag}: launches {counts}, expected {want}; "
+            f"uplink {s.uplink_bytes} of raw {s.uplink_bytes_raw} bytes")
+        if counts != want:
+            raise AssertionError(f"resnet18 wire {tag}: launches differ")
+        del s
+
+    # -- 6. the port's quickstart -------------------------------------------
     t0 = time.perf_counter()
     hist = quickstart.run(device="cuda")
     gap = hist["fedadc"][-1]["acc"] - hist["fedavg"][-1]["acc"]
@@ -385,8 +658,11 @@ def main():
         f"FedADC - FedAvg = {gap:+.3f}")
 
     log(f"total: {time.perf_counter() - t_start:.1f}s")
+    # launches: the update kernels' from the main path (phase 3), the wire
+    # kernels' from the wire phase (4)
+    launches.update(wire_launches)
     log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": TPU_KERNEL[name], "launches": launches[name],
          "max_abs_err": errs[name], **timed[name]}
         for name in ops.KERNELS]}))

@@ -15,15 +15,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.tree import tree_map_with_path
+
 
 def _is_conv(path, a) -> bool:
     return path[-1] == "w" and np.ndim(a) == 4
-
-
-def _map_with_path(fn, tree, path=()):
-    if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
-    return fn(path, tree)
 
 
 def from_numpy(params, device, dtype=None):
@@ -35,7 +31,7 @@ def from_numpy(params, device, dtype=None):
             a = a.transpose(3, 2, 0, 1)              # HWIO -> OIHW
         t = torch.from_numpy(np.array(a, copy=True))
         return t.to(device=device, dtype=dtype or t.dtype)
-    return _map_with_path(leaf, params)
+    return tree_map_with_path(leaf, params)
 
 
 def to_numpy(params):
@@ -49,4 +45,4 @@ def to_numpy(params):
         if _is_conv(path, a):
             a = a.transpose(2, 3, 1, 0)              # OIHW -> HWIO
         return np.ascontiguousarray(a)
-    return _map_with_path(leaf, params)
+    return tree_map_with_path(leaf, params)

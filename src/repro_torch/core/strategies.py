@@ -102,8 +102,7 @@ def _fused_server_step(theta_t, m, delta_bar, gamma, fed):
         lambda t, mi, di: ops.fedadc_server_update(t, mi, di, gamma,
                                                    fed.alpha * fed.eta),
         theta_t, m, delta_bar)
-    return (T.tree_map(lambda p: p[0], pairs),
-            T.tree_map(lambda p: p[1], pairs))
+    return T.unzip2(pairs)
 
 
 def _fp32_zeros_like(params):
@@ -148,6 +147,17 @@ class FedADC(FedAvg):
         return {"m_bar": T.tree_map(lambda m, p: m.to(p.dtype), m_bar,
                                     params)}
 
+    # the ctx is an exact scalar image of the θ-delta (server_update:
+    # Δθ_t = −α·η·m_t while m̄_t = β_l/H · m_t), so the delta downlink
+    # derives it from the θ wire instead of sending it: 0 bytes.
+    # `delta_params` is the decoded θ-delta the clients received; the scale
+    # comes from the config, never from the wire.
+    def _ctx_scale(self, fed):
+        return -fed.beta_local / (fed.local_steps * fed.alpha * fed.eta)
+
+    def ctx_from_broadcast_delta(self, delta_params, fed):
+        return {"m_bar": T.scale(delta_params, self._ctx_scale(fed))}
+
     def local_step(self, theta, ctx, grad_fn, batch, fed, extra):
         m_bar = ctx["m_bar"]
         if fed.variant == "nesterov":
@@ -185,6 +195,10 @@ class FedADCDouble(FedADC):
         m_bar = T.scale(server_state["m"], fed.beta_global / fed.local_steps)
         return {"m_bar": T.tree_map(lambda m, p: m.to(p.dtype), m_bar,
                                     params)}
+
+    def _ctx_scale(self, fed):
+        # Alg. 4 broadcasts m̄_t = β_g/H · m_t against the same Δθ = −αη·m_t
+        return -fed.beta_global / (fed.local_steps * fed.alpha * fed.eta)
 
     def init_extra(self, params, fed):
         return {"m_local": T.zeros_like(params), "tau": 0}

@@ -73,3 +73,18 @@ def clip_per_client(t, max_norm):
 def cast(t, dtype):
     return tree_map(lambda x: x.to(dtype), t)
 
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``tree_map`` over one tree whose ``fn`` also gets the leaf's key path
+    (the tuple of dict keys, e.g. ``("c1", "w")``), so a leaf is found by
+    name whatever the dict order."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def unzip2(pairs):
+    """A tree of (a, b) pairs -> (tree of a, tree of b)."""
+    return tree_map(lambda p: p[0], pairs), tree_map(lambda p: p[1], pairs)

@@ -4,8 +4,10 @@
 Reproduces the paper's experimental setup: N clients with non-iid
 partitions, cN sampled per round, H local SGD steps, then the strategy's
 server update.  The engine drives the round protocol: per-client
-cross-round state (SCAFFOLD/FedDyn) lives in the protocol's
-``ClientStore``, and both wire directions go through its ``Transport``.
+cross-round state (SCAFFOLD/FedDyn) and the uplink's error-feedback
+residuals live in the protocol's ``ClientStore``, both wire directions go
+through its ``Transport``, and the downlink reference through its
+``ReferenceStore``.
 
 Where the reference vmaps one client's update over the round's K clients
 and scans the H steps, this engine keeps the K clients' parameters stacked
@@ -19,6 +21,10 @@ consumed in the reference's order (the selector call, then one permutation
 per pick and per rep), so the two engines see the same data.  The
 reference's JAX-keyed init cannot be reproduced in torch: pass converted
 reference parameters as ``params=`` to start both from the same point.
+Likewise QSGD's uniform draws: they come from ``uniforms=``, a source
+``(name, shape, dtype, device) -> tensor`` asked once per leaf with
+``name = (round, "uplink" | "downlink", ..., leaf path)``; by default one
+``torch.Generator`` on the device seeded from ``seed ^ 0x5F5E1``.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch.core.selection import SELECTORS
 from repro_torch.core.strategies import get_strategy
 from repro_torch.data.partition import class_counts
 from repro_torch.device import resolve_device
+from repro_torch.federated.compression import GeneratorUniforms, UniformDraws
 from repro_torch.federated.protocol import RoundProtocol
 from repro_torch.models.vision import VISION_MODELS
 from repro_torch.telemetry import Telemetry
@@ -67,7 +74,7 @@ class FederatedSimulator:
                  x_train, y_train, x_test, y_test,
                  parts: List[np.ndarray],
                  telemetry: Optional[Telemetry] = None,
-                 store=None, params=None, device=None):
+                 store=None, params=None, device=None, uniforms=None):
         self.device = resolve_device(device)
         self.fed, self.sim = fed, sim
         self.telemetry = telemetry if telemetry is not None \
@@ -104,12 +111,17 @@ class FederatedSimulator:
         self.server_state = self.strategy.server_init(self.params)
         self.stateful = not self.strategy.stateless_clients
         self.protocol.register_client_state(self._client_state_init)
-        # EF residuals exist only behind a lossy codec (the wire slice); the
-        # namespace is registered so the store layout matches the reference
-        self.protocol.register_ef(lambda: T.zeros_like(self.params))
+        self.ef_enabled = self.protocol.ef_enabled
+        self.protocol.register_ef(self._ef_init)
+        self.uniforms = uniforms if uniforms is not None \
+            else GeneratorUniforms(sim.seed ^ 0x5F5E1, self.device)
         ctx = self.strategy.client_setup(self.server_state, self.params, fed)
         self.transport.set_wire_templates(
             self.params, {"params": self.params, "ctx": ctx})
+        # the delta downlink's round-0 reference is the initial sync, so the
+        # first wire delta is exactly zero (held only for the lossy family)
+        self.refs.seed(self.protocol.init_downlink_ref(self.server_state,
+                                                       self.params))
         self._rounds_done = 0
         self._grad = torch.func.vmap(torch.func.grad_and_value(
             self._local_loss))
@@ -121,6 +133,10 @@ class FederatedSimulator:
     @property
     def client_states(self) -> Dict[int, object]:
         return self.protocol.store.states("state")
+
+    @property
+    def ef_states(self) -> Dict[int, object]:
+        return self.protocol.store.states("ef")
 
     @property
     def uplink_bytes(self) -> int:
@@ -139,8 +155,24 @@ class FederatedSimulator:
         return self.transport.downlink_bytes_raw
 
     # ------------------------------------------------------------------
+    @property
+    def _lossy_uplink(self) -> bool:
+        up = self.transport.up
+        return up is not None and up.lossy
+
+    @property
+    def _lossy_downlink(self) -> bool:
+        down = self.transport.down
+        return down is not None and down.lossy
+
     def _client_state_init(self):
         return self.strategy.client_state_init(self.params)
+
+    def _ef_init(self):
+        if self._lossy_uplink:
+            return T.zeros_like(self.params)
+        # codec bypassed or lossless: the same placeholder as the reference
+        return {"_": torch.zeros((), device=self.device)}
 
     def _local_loss(self, theta, xb, yb):
         """One client's local objective (the plain cross-entropy in this
@@ -181,15 +213,30 @@ class FederatedSimulator:
                                                        theta_t, theta, fed)
         return delta, new_cstates, torch.stack(losses).mean(), theta
 
-    def _round(self, xb, yb, cstates, n_examples):
+    def _round(self, xb, yb, cstates, n_examples, efs, keys, bcast):
+        """One round's device work.  ``keys`` = (uplink, downlink) draws;
+        ``bcast`` is the (params_w, ctx) wire of the delta family computed
+        through the ReferenceStore, or None to broadcast inline."""
         strategy, fed, protocol = self.strategy, self.fed, self.protocol
-        params_w, ctx = protocol.client_ctx(self.server_state, self.params)
+        up_key, down_key = keys
+        if bcast is None:
+            params_w, ctx, _ = protocol.client_ctx(
+                self.server_state, self.params,
+                down_key if self._lossy_downlink else None, None)
+        else:
+            params_w, ctx = bcast
         deltas, ncs, loss, theta_hs = self._client_update(params_w, ctx, xb,
                                                           yb, cstates)
-        deltas, _ = protocol.uplink(deltas)
+        if protocol.sparse_native:
+            # encode only: the (values, indices) wire flows straight into
+            # the sparse aggregate, with the same exact-complement EF
+            deltas, new_efs = protocol.uplink_encode(deltas, efs, up_key)
+        else:
+            deltas, new_efs = protocol.uplink(deltas, efs, up_key)
         weights = protocol.weights(deltas, n_examples=n_examples,
-                                   server_state=self.server_state)
-        mean_delta = protocol.aggregate(deltas, weights)
+                                   server_state=self.server_state,
+                                   like=self.params)
+        mean_delta = protocol.aggregate(deltas, weights, like=self.params)
         if fed.strategy == "feddyn":
             mean_theta_h = T.tree_map(lambda d: torch.mean(d, 0), theta_hs)
             sum_drift = T.tree_map(
@@ -206,7 +253,7 @@ class FederatedSimulator:
         else:
             new_params, new_ss = protocol.server_update(
                 self.server_state, self.params, mean_delta)
-        return new_params, new_ss, ncs, loss
+        return new_params, new_ss, ncs, new_efs, loss
 
     # ------------------------------------------------------------------
     def _client_batches(self, client: int, local_steps: Optional[int] = None):
@@ -249,16 +296,40 @@ class FederatedSimulator:
     def run_round(self, picks, xb, yb):
         """One round on given picks and batches -> the round's mean local
         loss (a device scalar)."""
+        t = self._rounds_done
         cstates = (self.protocol.store.gather("state", picks)
                    if self.stateful else None)
+        efs = self.protocol.store.gather("ef", picks)
         n_examples = torch.tensor([len(self.parts[int(c)]) for c in picks],
                                   dtype=torch.float32, device=self.device)
+        keys = (UniformDraws(self.uniforms, (t, "uplink"), self.device),
+                UniformDraws(self.uniforms, (t, "downlink"), self.device))
+
+        def compute_bcast(ref):
+            return self.protocol.client_ctx(
+                self.server_state, self.params,
+                keys[1] if self._lossy_downlink else None, ref)
+        bcast = None
+        if self.transport.stateful_downlink:
+            # lossy delta family: one broadcast per version through the
+            # ReferenceStore, which advances the reference exactly once
+            bcast = self.refs.broadcast(t, compute_bcast)
+        wire = bcast
+        if wire is None and self.refs.unicast:
+            # the lossless delta stays inline in the round; the unicast
+            # layer still takes the wire once per round for the pages
+            wire = self.refs.broadcast(t, compute_bcast)
         with self.telemetry.tracer.span("round"):
-            (self.params, self.server_state, ncs,
-             loss) = self._round(xb, yb, cstates, n_examples)
+            (self.params, self.server_state, ncs, nefs,
+             loss) = self._round(xb, yb, cstates, n_examples, efs, keys,
+                                 bcast)
         if self.stateful:
             self.protocol.store.scatter("state", picks, ncs)
-        self.refs.dispatch(picks, self._rounds_done)
+        if self.ef_enabled:
+            self.protocol.store.scatter("ef", picks, nefs)
+        # downlink accounting and the unicast ledgers (the delta codec's
+        # first broadcast is the full initial sync)
+        self.refs.dispatch(picks, t, wire=wire)
         self._rounds_done += 1
         self.transport.account_uplink(len(picks))
         return loss

@@ -3,8 +3,9 @@
 
 One gather/scatter interface for per-client cross-round state, in named
 namespaces: ``"state"`` (SCAFFOLD control variates ``c_i``, FedDyn drift
-corrections) and ``"ef"`` (error-feedback residuals, used once a lossy wire
-exists).  The simulator gathers the round's picks into one client-stacked
+corrections), ``"ef"`` (the uplink's error-feedback residuals) and
+``"downlink_ref"`` (the wire each client last received, under the unicast
+downlink).  The simulator gathers the round's picks into one client-stacked
 tree, runs the round, and scatters the updated states back.  A state is
 lazily initialised on first gather; ``is None`` (not truthiness) decides
 whether a slot is empty.

@@ -20,7 +20,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = (CSRC / "fedadc_kernels.cu",)
+SOURCES = (CSRC / "fedadc_kernels.cu", CSRC / "compress_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -28,14 +28,26 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
 _INT = ctypes.c_int
-# argtypes of every C entry point: pointers and the stream as c_void_p, so
-# ctypes never truncates a 64-bit address to an int
+# argtypes of every C entry point, by the source that defines it: pointers
+# and the stream as c_void_p, so ctypes never truncates a 64-bit address to
+# an int.  Every source also defines ``fedadc_error_string``.
 SIGNATURES = {
-    "fedadc_fused_axpy": [_P, _P, _P, _I64, _F, _INT, _P],
-    "fedadc_local_update": [_P, _P, _P, _P, _I64, _F, _INT, _P],
-    "fedadc_server_update": [_P, _P, _P, _P, _P, _I64, _F, _F, _INT, _P],
-    "fedadc_weighted_reduce": [_P, _P, _P, _I64, _I64, _INT, _P],
+    SOURCES[0]: {
+        "fedadc_fused_axpy": [_P, _P, _P, _I64, _F, _INT, _P],
+        "fedadc_local_update": [_P, _P, _P, _P, _I64, _F, _INT, _P],
+        "fedadc_server_update": [_P, _P, _P, _P, _P, _I64, _F, _F, _INT, _P],
+        "fedadc_weighted_reduce": [_P, _P, _P, _I64, _I64, _INT, _P],
+    },
+    SOURCES[1]: {
+        "fedadc_threshold_select": [_P, _P, _P, _P, _I64, _I64, _INT, _P],
+        "fedadc_qsgd": [_P, _P, _P, _P, _P, _I64, _I64, _F, _INT, _P],
+        "fedadc_sparse_reduce": [_P, _P, _P, _P, _I64, _I64, _I64, _INT,
+                                 _INT, _P],
+    },
 }
+# the source of every entry point
+ENTRY_SOURCE = {name: src for src, names in SIGNATURES.items()
+                for name in names}
 
 _LIBS: Dict[Path, ctypes.CDLL] = {}
 
@@ -89,7 +101,7 @@ def build_all(sources=SOURCES) -> List[dict]:
     return records
 
 
-def library(source: Path = SOURCES[0]) -> ctypes.CDLL:
+def library(source: Path) -> ctypes.CDLL:
     """The loaded library for one source, built first if needed.  Looked up
     once per process: a launch must not pay for hashing the source."""
     lib = _LIBS.get(source)
@@ -98,7 +110,7 @@ def library(source: Path = SOURCES[0]) -> ctypes.CDLL:
         if not lib_path.exists():
             build_all((source,))
         lib = ctypes.CDLL(str(lib_path))
-        for name, argtypes in SIGNATURES.items():
+        for name, argtypes in SIGNATURES[source].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -110,7 +122,7 @@ def library(source: Path = SOURCES[0]) -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call one C entry point and raise if it reports a CUDA error."""
-    lib = library()
+    lib = library(ENTRY_SOURCE[name])
     code = getattr(lib, name)(*args)
     if code != 0:
         msg = lib.fedadc_error_string(code).decode()

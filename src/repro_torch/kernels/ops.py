@@ -1,5 +1,5 @@
 """Per-leaf public wrappers around the port's kernels (the counterparts of
-the JAX package's ``kernels/ops.py:33-97``).
+the JAX package's ``kernels/ops.py:33-180``).
 
 A CUDA tensor launches the Hopper kernel (or the kernel's wrapper raises);
 a CPU tensor takes the kernel's plain version from ``ref``.  The device of
@@ -9,8 +9,12 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
+from repro_torch.kernels import compress as _cp
 from repro_torch.kernels import fedadc_update as _fu
 from repro_torch.kernels import ref
+from repro_torch.kernels import sparse_reduce as _sr
 from repro_torch.kernels import weighted_reduce as _wr
 
 # the launching wrapper of every kernel, by the name the launch counts use
@@ -19,6 +23,9 @@ KERNELS = {
     "local_update": _fu.local_update,
     "server_update": _fu.server_update,
     "weighted_reduce": _wr.weighted_reduce,
+    "threshold_select": _cp.threshold_select,
+    "qsgd": _cp.qsgd,
+    "sparse_reduce": _sr.sparse_reduce,
 }
 
 
@@ -60,3 +67,62 @@ def weighted_delta_reduce(deltas, weights):
     if deltas.device.type == "cpu":
         return ref.weighted_delta_reduce(deltas, weights)
     return _wr.weighted_reduce(deltas, weights)
+
+
+# ---------------------------------------------------------------------------
+# delta compression: quantise/sparsify round trips of a leaf stacked over
+# clients (B, ...), with one scalar per client row
+# ---------------------------------------------------------------------------
+def qsgd_compress_leaf(v, u, scale, s):
+    """Stochastic uniform quantise-dequantise.  ``u`` the uniform draw (v's
+    shape), ``scale`` (B,) each row's max magnitude, ``s`` the level count.
+    -> (dequantised q, residual v − q)."""
+    u = u.to(v.dtype)
+    if v.device.type == "cpu":
+        return ref.qsgd_quantize(v, u, scale, s)
+    return _cp.qsgd(v.contiguous(), u.contiguous(), scale.contiguous(), s)
+
+
+def topk_compress_leaf(v, thresh):
+    """Magnitude-threshold select (top-k with τ (B,) precomputed).
+    -> (selected q, residual v − q)."""
+    if v.device.type == "cpu":
+        return ref.topk_threshold_select(v, thresh)
+    return _cp.threshold_select(v.contiguous(), thresh.contiguous())
+
+
+def topk_sparse_leaf(v, k):
+    """The true sparse top-k of each row of v (B, ...): the k largest-|v|
+    entries leave as (values (B, k), flat indices (B, k) int32) — the wire
+    itself — and the residual keeps everything else.  The residual zeroes
+    exactly the gathered indices, so scatter(values, indices) + residual ==
+    v bit for bit.  No kernel, as in the reference: ``torch.topk`` and a
+    gather.  -> (values, indices, residual of v's shape)."""
+    flat = v.reshape(v.shape[0], -1)
+    idx = torch.topk(torch.abs(flat), k, dim=1).indices
+    values = torch.gather(flat, 1, idx)
+    residual = flat.scatter(1, idx, torch.zeros_like(values))
+    return values, idx.to(torch.int32), residual.reshape(v.shape)
+
+
+def sparse_scatter_leaf(values, indices, shape, dtype):
+    """Server-side decode of the stacked sparse leaf (B, k): scatter each
+    row's pairs into a dense zero leaf -> (B, *shape)."""
+    n = 1
+    for d in shape:
+        n *= d
+    out = torch.zeros((values.shape[0], n), dtype=dtype, device=values.device)
+    out.scatter_(1, indices.long(), values.to(dtype))
+    return out.reshape((values.shape[0],) + tuple(shape))
+
+
+def sparse_weighted_delta_reduce(values, indices, weights, shape, dtype):
+    """Σ_k w_k · scatter(values_k @ indices_k) for one leaf from the stacked
+    (K, k) wire pairs, into the dense ``shape``/``dtype`` template: the
+    sparse server aggregate at K·k cost, fp32 accumulation, cast on write."""
+    if values.device.type == "cpu":
+        return ref.sparse_weighted_delta_reduce(values, indices, weights,
+                                                shape, dtype)
+    return _sr.sparse_reduce(values.contiguous(),
+                             indices.to(torch.int32).contiguous(),
+                             weights.float().contiguous(), shape, dtype)

@@ -4,8 +4,9 @@ the telemetry slice).
 
 Engines take ``telemetry=`` and default to ``Telemetry.disabled()``.  The
 disabled facade keeps what the engines return — the eval ``history`` — and
-the counter registry the transport accounts its bytes into; its tracer's
-``span`` is a no-op.
+the counter registry the transport accounts its bytes into, and the named
+histograms (the downlink's per-client payload sizes); its tracer's ``span``
+is a no-op.
 """
 from __future__ import annotations
 
@@ -32,6 +33,34 @@ class Counters:
         return self._c.get(name, default)
 
 
+class Histogram:
+    """Bounded integer histogram: bins ``0..n_bins-1`` plus an overflow
+    bucket, with the exact count, total and max kept beside them, so its
+    memory stays O(n_bins) for any number of observations."""
+
+    def __init__(self, n_bins: int = 32):
+        if n_bins < 1:
+            raise ValueError("Histogram needs at least one bin")
+        self.n_bins = n_bins
+        self.bins = [0] * n_bins
+        self.overflow = 0
+        self.count = 0
+        self.total = 0
+        self.max = 0
+
+    def observe(self, value: int) -> None:
+        v = int(value)
+        if v < 0:
+            raise ValueError(f"Histogram observes non-negative ints, got {v}")
+        if v < self.n_bins:
+            self.bins[v] += 1
+        else:
+            self.overflow += 1
+        self.count += 1
+        self.total += v
+        self.max = max(self.max, v)
+
+
 class Tracer:
     """Span tracing; this slice has only the disabled tracer."""
 
@@ -45,15 +74,22 @@ class Telemetry:
         self.engine = engine
         self.tracer = Tracer()
         self.counters = Counters()
+        self.histograms: Dict[str, Histogram] = {}
         self.history: deque = deque(maxlen=HISTORY_MAXLEN)  # eval history
 
     @classmethod
     def disabled(cls, engine: str = "") -> "Telemetry":
         return cls(engine=engine)
 
+    def histogram(self, name: str, n_bins: int = 32) -> Histogram:
+        """Get-or-create a named bounded histogram."""
+        if name not in self.histograms:
+            self.histograms[name] = Histogram(n_bins)
+        return self.histograms[name]
+
     def record_eval(self, entry: dict) -> None:
         """One eval-history entry (this IS the engines' ``history``)."""
         self.history.append(entry)
 
 
-__all__ = ["Telemetry", "Tracer", "Counters"]
+__all__ = ["Telemetry", "Tracer", "Counters", "Histogram"]

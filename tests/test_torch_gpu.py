@@ -1,4 +1,6 @@
-"""Tests of the port that need a CUDA card; each skips without one.
+"""Tests of the port that need a CUDA card; each skips without one: the
+seven kernels against their plain versions, and rounds of the simulator on
+the card (plain wire, dense and sparse top-k).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch:
@@ -13,8 +15,10 @@ from repro_torch.core import tree as T
 from repro_torch.data.partition import sort_and_partition
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.federated.simulator import FederatedSimulator, SimConfig
+from repro_torch.kernels import compress as CP
 from repro_torch.kernels import fedadc_update as FU
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sparse_reduce as SR
 from repro_torch.kernels import weighted_reduce as WR
 
 
@@ -96,3 +100,122 @@ def test_round_on_the_card_matches_the_cpu(variant):
     assert counts[step_kernel] > 0 and counts["weighted_reduce"] > 0
     assert counts["server_update"] > 0
     assert update_rel_err(sims[0].params, sims[1].params, start) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wire_kernels_match_plain(dtype):
+    """The threshold select and QSGD on a leaf stacked over 8 clients, one
+    scalar per row, equal their plain versions bit for bit (QSGD rounds to
+    the operand dtype after every op on both sides); a zero row gives exact
+    zeros."""
+    need_card()
+    g = torch.Generator().manual_seed(1)
+    for n in (1, 10, 130, 1290, 100_003):
+        v = torch.randn(8, n, generator=g).to("cuda", dtype)
+        v[3] = 0
+        tau = torch.topk(v.abs(), max(1, n // 10),
+                         dim=1).values[:, -1].contiguous()
+        for a, b in zip(CP.threshold_select(v, tau),
+                        ref.topk_threshold_select(v, tau)):
+            assert torch.equal(a, b)
+        u = torch.rand(8, n, generator=g).to("cuda", dtype)
+        scale = torch.amax(v.abs(), dim=1)
+        for s in (3, 15, 255):
+            q, r = CP.qsgd(v, u, scale, s)
+            qe, re = ref.qsgd_quantize(v, u, scale, s)
+            assert torch.equal(q, qe) and torch.equal(r, re)
+            assert not q[3].any() and not r[3].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vdt,odt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+def test_sparse_reduce_matches_plain(vdt, odt):
+    """Bit for bit with the plain version: random indices with duplicates
+    within a client (pair order decides the rounding), unique top-k-like
+    wires over several output tiles, a scalar leaf and an empty wire."""
+    need_card()
+    g = torch.Generator().manual_seed(2)
+    cases = [(6, 97, 2048), (3, 5, 17), (4, 1, 1), (8, 2000, 20_000)]
+    for k_clients, k, n in cases:
+        vals = torch.randn(k_clients, k, generator=g).to("cuda", vdt)
+        for idx in (torch.randint(0, n, (k_clients, k), generator=g),
+                    torch.stack([torch.randperm(n, generator=g)[:k]
+                                 for _ in range(k_clients)])):
+            idx = idx.to("cuda", torch.int32)
+            w = torch.rand(k_clients, generator=g).cuda()
+            got = SR.sparse_reduce(vals, idx, w, (n,), odt)
+            want = ref.sparse_weighted_delta_reduce(vals, idx, w, (n,), odt)
+            assert torch.equal(got, want)
+    empty = SR.sparse_reduce(torch.zeros((2, 0), device="cuda", dtype=vdt),
+                             torch.zeros((2, 0), device="cuda",
+                                         dtype=torch.int32),
+                             torch.ones(2, device="cuda"), (8,), odt)
+    assert not empty.any()
+    dup = SR.sparse_reduce(
+        torch.tensor([[1.0, 2.0, 4.0], [8.0, 16.0, 32.0]], device="cuda",
+                     dtype=vdt),
+        torch.tensor([[5, 5, 5], [5, 5, 2]], device="cuda",
+                     dtype=torch.int32),
+        torch.ones(2, device="cuda"), (8,), odt).float().cpu()
+    assert dup[5] == 31 and dup[2] == 32 and dup.sum() == 63
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_sparse_reduce_bf16_k96_vs_fp64():
+    need_card()
+    K, N, k = 96, 4096, 409
+    g = torch.Generator().manual_seed(7)
+    vals = (1.0 + 0.05 * torch.randn(K, k, generator=g)).to(torch.bfloat16)
+    idx = torch.stack([torch.randperm(N, generator=g)[:k] for _ in range(K)])
+    w = torch.rand(K, generator=g) * 0.8 + 0.2
+    oracle = torch.zeros(N, dtype=torch.float64)
+    oracle.index_add_(0, idx.reshape(-1),
+                      (w.double()[:, None] * vals.double()).reshape(-1))
+    got = SR.sparse_reduce(vals.cuda(), idx.to("cuda", torch.int32),
+                           w.cuda(), (N,), torch.float32).double().cpu()
+    assert torch.all((got - oracle).abs() <= oracle.abs() * 2.0 ** -8 + 1e-7)
+
+
+@pytest.mark.gpu
+def test_dense_and_sparse_topk_rounds_on_the_card():
+    """One FedADC round on the card under the dense top-k wire and under
+    the sparse wire with its sparse aggregate, from the same parameters and
+    batches (cuDNN deterministic): the select and the reduce kernels launch,
+    and the two updates agree within 1e-3 relative.  The reconstructions
+    are equal except where magnitudes tie at the threshold (the dense
+    select keeps every tied entry, the sparse wire exactly k), and both
+    aggregates sum in fp32 in client order."""
+    need_card()
+    x, y, xt, yt = make_image_dataset(400, 50, 10, image_size=16)
+    parts = sort_and_partition(y, 10, s=2)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        updates, counts = [], []
+        for kw in ({}, {"sparse_uplink": True}):
+            ops.reset_launch_counts()
+            s = FederatedSimulator(
+                FedConfig(compressor="topk", topk_frac=0.1, local_steps=2,
+                          clients_per_round=3, n_clients=10, eta=0.01, **kw),
+                SimConfig(batch_size=16, cnn_width=8, seed=3), x, y, xt, yt,
+                parts, device="cuda")
+            start = T.tree_map(lambda t: t.clone(), s.params)
+            s.run_round(*s.next_round_inputs())
+            updates.append(T.sub(s.params, start))
+            counts.append(ops.launch_counts())
+    finally:
+        torch.backends.cudnn.deterministic = det
+    n_leaves = len(T.leaves(updates[0]))
+    assert counts[0]["threshold_select"] == n_leaves
+    assert counts[0]["sparse_reduce"] == 0
+    assert counts[1]["sparse_reduce"] == n_leaves
+    assert counts[1]["threshold_select"] == 0
+    num = sum(((a - b) ** 2).sum() for a, b in zip(T.leaves(updates[0]),
+                                                   T.leaves(updates[1])))
+    den = sum((a ** 2).sum() for a in T.leaves(updates[0]))
+    assert (num / den).sqrt().item() <= 1e-3

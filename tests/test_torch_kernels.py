@@ -1,4 +1,5 @@
-"""The port's four update kernels, held against the JAX package.
+"""The port's four update kernels, held against the JAX package (the
+three wire kernels are in ``test_torch_compression.py``).
 
 On the CPU the port's wrappers (``repro_torch.kernels.ops``) run the plain
 PyTorch versions; each is compared with the reference's Pallas kernel in
@@ -24,8 +25,10 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import compress as CP
 from repro_torch.kernels import fedadc_update as FU
 from repro_torch.kernels import ops
+from repro_torch.kernels import sparse_reduce as SR
 from repro_torch.kernels import weighted_reduce as WR
 
 LENGTHS = [1, 10, 130, 1290]
@@ -161,8 +164,16 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
     ops.fedadc_local_update(x, x, x, 0.5)
     ops.fedadc_server_update(x, x, x, 0.2, 0.5)
     ops.weighted_delta_reduce(torch.stack([x, x]), torch.ones(2))
+    rows = torch.stack([x, x])
+    ops.topk_compress_leaf(rows, torch.ones(2))
+    ops.qsgd_compress_leaf(rows, torch.rand(2, 100), torch.ones(2), 15)
+    ops.sparse_weighted_delta_reduce(rows, torch.zeros((2, 100),
+                                                       dtype=torch.int32),
+                                     torch.ones(2), (100,), torch.float32)
     assert ops.launch_counts() == {"fused_axpy": 0, "local_update": 0,
-                                   "server_update": 0, "weighted_reduce": 0}
+                                   "server_update": 0, "weighted_reduce": 0,
+                                   "threshold_select": 0, "qsgd": 0,
+                                   "sparse_reduce": 0}
     with pytest.raises(ValueError, match="CUDA"):
         FU.fused_axpy(x, x, 0.5)
     with pytest.raises(ValueError, match="CUDA"):
@@ -171,3 +182,10 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
         FU.server_update(x, x, x, 0.2, 0.5)
     with pytest.raises(ValueError, match="CUDA"):
         WR.weighted_reduce(torch.stack([x, x]), torch.ones(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        CP.threshold_select(rows, torch.ones(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        CP.qsgd(rows, rows, torch.ones(2), 15)
+    with pytest.raises(ValueError, match="CUDA"):
+        SR.sparse_reduce(rows, torch.zeros((2, 100), dtype=torch.int32),
+                         torch.ones(2), (100,), torch.float32)
