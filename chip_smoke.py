@@ -8,15 +8,21 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. build    — compile the port's CUDA kernels with nvcc for sm_90a;
-2. kernels  — hold each of the seven kernels against its plain PyTorch
-              version on the card, bit for bit in fp32 and bf16, at the
-              main path's leaf shapes (the paper CNN at width 32, its 16
-              leaves stacked over K=8 clients) and at ResNet-18's largest
-              leaf stacked over K=8; the weighted and the sparse reduce
-              also at K=96 bf16 against an fp64 oracle (1 bf16 ulp), the
-              sparse reduce also on duplicate indices; then time each
-              kernel, its plain version and, where one PyTorch call
-              computes the same function, that call;
+2. kernels  — hold each of the seven update and wire kernels against its
+              plain PyTorch version on the card, bit for bit in fp32 and
+              bf16, at the main path's leaf shapes (the paper CNN at width
+              32, its 16 leaves stacked over K=8 clients) and at
+              ResNet-18's largest leaf stacked over K=8; the weighted and
+              the sparse reduce also at K=96 bf16 against an fp64 oracle
+              (1 bf16 ulp), the sparse reduce also on duplicate indices;
+              the KD forward and backward kernels in fp32 and bf16 at the
+              FedADC+ CNN's (512, 10) (K=8 clients x batch 64 folded, 8
+              groups of rho), ResNet-18's (512, 100), the reference sweep's
+              (31, 257) and (64, 37) and an LM vocabulary's (1024, 32768),
+              forward within atol 1e-5 + rtol 1e-4, backward within 1e-5 of
+              the gradient's largest magnitude; then time each kernel, its
+              plain version and, where one PyTorch call computes the same
+              function, that call;
 3. main     — the paper CNN at width 32 on 32x32x3 images at CIFAR-10
               cardinality (50000/10000), sort-and-partition s=2 over 100
               clients, FedConfig defaults (|S|=8, H=8, nesterov) but eta 0.01,
@@ -37,10 +43,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               launch counts, measured bytes equal to the configuration's
               wire sizes, (a) and (b) the same update, the round time and
               a profiled round's idle share each;
-5. resnet   — one FedADC round of ResNet-18 with 100 classes (|S|=8, H=2),
+5. distill  — the same CNN main path under FedADC+ (lambda 0.35, tau 1.0):
+              4 rounds with exact launch counts (the FedADC round's update
+              kernels plus H kd_loss and H kd_loss_bwd a round), round time
+              and a profiled round's idle share beside phase 3's plain
+              FedADC round; one round each of the Table I baselines moon,
+              fedgkd, fedntd and fedrs at the benchmark's eta 0.05
+              (benchmarks/table1_sota.py), whose loss is only logged: at
+              this full width it diverges, as FedAvg's does, within the
+              round; then one round each at the main path's eta 0.01, which
+              must stay finite; then the card (TF32 off) against the CPU on
+              a one-step FedADC+ round from the same parameters and
+              batches, within 1e-4 relative;
+6. resnet   — one FedADC round of ResNet-18 with 100 classes (|S|=8, H=2),
               the kernels timed over its 76 leaves, then one round each
-              under the wires (b) and (c);
-6. quickstart — the port's quickstart (40 rounds of FedAvg and FedADC).
+              under the wires (b) and (c) and one FedADC+ round (the KD
+              kernels at C=100);
+7. quickstart — the port's quickstart (40 rounds of FedAvg and FedADC);
+8. personalization — the port's personalization example (20 FedADC+
+              rounds, then head calibration with the KD regulariser).
 
 Every time is measured here, on the card named in the output.  Bounds use
 the H100 SXM data sheet: 3.35 TB/s of HBM and 67 TFLOP/s of fp32 outside
@@ -64,11 +85,16 @@ TPU_KERNEL = {
     "threshold_select": "src/repro/kernels/compress.py:85",
     "qsgd": "src/repro/kernels/compress.py:80",
     "sparse_reduce": "src/repro/kernels/sparse_reduce.py:53",
+    # the Pallas kd_loss has no backward; kd_loss_bwd is its gradient
+    "kd_loss": "src/repro/kernels/kd_loss.py:55",
+    "kd_loss_bwd": "src/repro/kernels/kd_loss.py:55",
 }
 UPDATE_SOURCE = "src/repro_torch/csrc/fedadc_kernels.cu"
 WIRE_SOURCE = "src/repro_torch/csrc/compress_kernels.cu"
-SOURCE = {name: WIRE_SOURCE if name in ("threshold_select", "qsgd",
-                                        "sparse_reduce") else UPDATE_SOURCE
+KD_SOURCE = "src/repro_torch/csrc/kd_kernels.cu"
+SOURCE = {name: (WIRE_SOURCE if name in ("threshold_select", "qsgd",
+                                         "sparse_reduce")
+                 else KD_SOURCE if name.startswith("kd_") else UPDATE_SOURCE)
           for name in TPU_KERNEL}
 K = 8
 ETA = 0.01
@@ -106,6 +132,15 @@ def cuda_ms(torch, fn, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+# the KD kernels' check shapes: (rows, classes, groups of rho)
+KD_SHAPES = [(512, 10, 8), (512, 100, 8), (31, 257, 1), (64, 37, 1),
+             (1024, 32768, 1)]
+KD_LAM, KD_TAU = 0.35, 1.0
+# the Table I baselines of phase 5, and the benchmark's eta for them
+BASELINES = ("moon", "fedgkd", "fedntd", "fedrs")
+TABLE1_ETA = 0.05
+
+
 def topk_k(n):
     return max(1, math.ceil(TOPK_FRAC * n))
 
@@ -130,6 +165,37 @@ def bound(kernel, sizes, k=K):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kd_bound(kernel, rows, n_classes, groups, elem_bytes=4):
+    """(bound_ms, bound_by) of one KD kernel call: each input read once and
+    each output written once, against the HBM rate; operations counted from
+    the source per element (forward: 3 exps, 1 log, 4 divides and about 20
+    adds, multiplies and compares; backward: 3 exps, 2 divides and about 12
+    more), against the fp32 rate."""
+    n = rows * n_classes
+    common = 2 * elem_bytes * n + 8 * rows + 4 * groups * n_classes
+    nbytes, flops = {
+        # + loss, ce, kl and 5 statistics a row
+        "kd_loss": (common + 4 * 8 * rows, 28 * n),
+        # + statistics and upstream gradient read, ds written
+        "kd_loss_bwd": (common + 4 * 6 * rows + elem_bytes * n, 17 * n),
+    }[kernel]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kd_operands(torch, rows, n_classes, groups, dtype, gen):
+    """Random KD operands on the card: logits (2σ), labels, ρ (one class
+    fully confident, so its target sits at the clip), upstream gradient."""
+    s, t = ((2 * torch.randn(rows, n_classes, generator=gen)).to("cuda", dtype)
+            for _ in range(2))
+    y = torch.randint(0, n_classes, (rows,), generator=gen).cuda()
+    rho = torch.rand(groups, n_classes, generator=gen).cuda()
+    rho[:, 0] = 1.0
+    g = torch.rand(rows, generator=gen).cuda()
+    return s, t, y, rho, g
 
 
 def sweeps(torch, FU, WR, ref, shapes, dtype, gen):
@@ -221,7 +287,8 @@ def wire_sweeps(torch, CP, SR, ref, shapes, dtype, gen):
 
 def profile_round(torch, sim, round_s, tag, top=12):
     """Profile one more round of `sim`: device time by kernel, and the idle
-    share against the median of the unprofiled rounds after the first."""
+    share against the median of the unprofiled rounds after the first.
+    -> the idle share, or None where the profiler saw no device time."""
     inputs = sim.next_round_inputs()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -246,8 +313,9 @@ def profile_round(torch, sim, round_s, tag, top=12):
             f"of the unprofiled round")
         for key, ms, count in rows[:top]:
             log(f"{tag}:   {ms:9.3f} ms  x{count:<5} {key[:90]}")
-    else:
-        log(f"{tag}: the profiler recorded no device time (not measured)")
+        return 1 - busy_ms / steady_ms
+    log(f"{tag}: the profiler recorded no device time (not measured)")
+    return None
 
 
 def expected_wire_launches(tag, rounds, n_leaves, h_steps):
@@ -260,7 +328,8 @@ def expected_wire_launches(tag, rounds, n_leaves, h_steps):
                  # QSGD on the uplink and on the θ delta of the downlink
                  # (FedADC's ctx is derived from it, not sent)
                  "qsgd": 2 * n_leaves if tag == "c_qsgd_delta_qsgd" else 0,
-                 "sparse_reduce": n_leaves if tag == "b_topk_sparse" else 0}
+                 "sparse_reduce": n_leaves if tag == "b_topk_sparse" else 0,
+                 "kd_loss": 0, "kd_loss_bwd": 0}
     return {name: rounds * n for name, n in per_round.items()}
 
 
@@ -306,7 +375,7 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import quickstart
+    from repro_torch import personalization_example, quickstart
     from repro_torch.configs.base import FedConfig
     from repro_torch.core import tree as T
     from repro_torch.data.partition import (dirichlet_partition,
@@ -316,6 +385,7 @@ def main():
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import compress as CP
     from repro_torch.kernels import fedadc_update as FU
+    from repro_torch.kernels import kd_loss as KD
     from repro_torch.kernels import sparse_reduce as SR
     from repro_torch.kernels import weighted_reduce as WR
     from repro_torch.models.vision import cnn_init
@@ -399,6 +469,34 @@ def main():
             raise AssertionError("sparse_reduce differs from its plain "
                                  "version on duplicate indices")
     del vals, idx, oracle, got
+    # the KD kernels: forward within the reference's bar, backward within
+    # 1e-5 of the gradient's largest magnitude (each row is reduced in
+    # another order than the plain version's, so not bit for bit)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, n_classes, groups in KD_SHAPES:
+            s_, t_, y_, rho_, g_ = kd_operands(torch, rows, n_classes, groups,
+                                               dtype, gen)
+            got = KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
+            want = ref.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
+            e = max_err([got], [want])
+            excess = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
+                         for a, b in zip(got, want))
+            ds = KD.kd_loss_bwd(s_, t_, y_, rho_, got[3], g_, KD_LAM, KD_TAU)
+            ds_plain = ref.kd_loss_bwd(s_, t_, y_, rho_, got[3], g_, KD_LAM,
+                                       KD_TAU)
+            e_bwd = max_err([ds], [ds_plain])
+            rel_bwd = e_bwd / ds_plain.float().abs().max().item()
+            torch.cuda.synchronize()
+            log(f"check kd_loss {dtype} ({rows}, {n_classes}) G={groups}: max "
+                f"|kernel - plain| = {e} (bar 1e-5 + 1e-4 |plain|, excess "
+                f"over rtol {excess}); kd_loss_bwd max |kernel - plain| = "
+                f"{e_bwd}, {rel_bwd} of the largest (bar 1e-5)")
+            if not (excess <= 1e-5 and rel_bwd <= 1e-5):
+                raise AssertionError(f"kd kernels {dtype} ({rows}, "
+                                     f"{n_classes}): differ from plain")
+            errs["kd_loss"] = max(errs["kd_loss"], e)
+            errs["kd_loss_bwd"] = max(errs["kd_loss_bwd"], e_bwd)
+    del s_, t_, y_, rho_, g_, got, want, ds, ds_plain
 
     cnn_sizes = [int(torch.Size(s).numel()) for s in cnn_shapes]
     timed = {}
@@ -419,6 +517,32 @@ def main():
             f"ms={cuda_ms(torch, kern)} plain_ms={cuda_ms(torch, plain)} "
             f"library_ms={cuda_ms(torch, lib) if lib else None} "
             f"bound_ms={b_ms} ({b_by})")
+    # the KD kernels at the FedADC+ CNN's folded (512, 10) (the line's
+    # numbers) and an LM vocabulary's (1024, 32768); no single PyTorch call
+    # computes this loss, so there is no library time
+    for rows, n_classes, groups in (KD_SHAPES[0], KD_SHAPES[-1]):
+        s_, t_, y_, rho_, g_ = kd_operands(torch, rows, n_classes, groups,
+                                           torch.float32, gen)
+        stats_ = KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)[3]
+        calls = {
+            "kd_loss": (
+                lambda: KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU),
+                lambda: ref.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)),
+            "kd_loss_bwd": (
+                lambda: KD.kd_loss_bwd(s_, t_, y_, rho_, stats_, g_, KD_LAM,
+                                       KD_TAU),
+                lambda: ref.kd_loss_bwd(s_, t_, y_, rho_, stats_, g_, KD_LAM,
+                                        KD_TAU))}
+        for name, (kern, plain) in calls.items():
+            b_ms, b_by = kd_bound(name, rows, n_classes, groups)
+            rec = {"ms": cuda_ms(torch, kern),
+                   "plain_ms": cuda_ms(torch, plain), "library_ms": None,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            log(f"time {name} ({rows}, {n_classes}) G={groups} fp32: "
+                f"{json.dumps(rec)}")
+            if rows == KD_SHAPES[0][0] and n_classes == KD_SHAPES[0][1]:
+                timed[name] = rec
+    del s_, t_, y_, rho_, g_, stats_
 
     # -- 3. the main path: paper CNN at width 32 ----------------------------
     log(f"main: TF32 cudnn={torch.backends.cudnn.allow_tf32} "
@@ -438,7 +562,8 @@ def main():
                 "local_update": H * n_leaves,
                 "server_update": 5 * n_leaves + n_leaves,
                 "weighted_reduce": 5 * n_leaves + 2 * n_leaves,
-                "threshold_select": 0, "qsgd": 0, "sparse_reduce": 0}
+                "threshold_select": 0, "qsgd": 0, "sparse_reduce": 0,
+                "kd_loss": 0, "kd_loss_bwd": 0}
     ops.reset_launch_counts()
     sim = FederatedSimulator(fed, sim_cfg, x, y, xt, yt, parts)
     round_s = []
@@ -479,7 +604,8 @@ def main():
                              "the rounds should make")
 
     # one profiled FedADC round: device time by kernel and the idle share
-    profile_round(torch, sim, round_s, "profile")
+    main_round_s = round_s
+    main_idle = profile_round(torch, sim, round_s, "profile")
 
     # the card (TF32 off) against the CPU from the same parameters and
     # batches, compared on the update Δθ = θ − θ_0 over the whole model:
@@ -591,7 +717,97 @@ def main():
     if not err <= 1e-3:
         raise AssertionError("wire: dense and sparse top-k disagree")
 
-    # -- 5. ResNet-18 at CIFAR-100 shape ------------------------------------
+    # -- 5. FedADC+ and the Table I baselines on the main path ----------------
+    params_d0 = cnn_init(13, width=32, image_size=32, device="cpu")
+    sim_d = FederatedSimulator(
+        FedConfig(eta=ETA, distill=True, distill_lambda=KD_LAM,
+                  distill_tau=KD_TAU),
+        SimConfig(model="cnn", n_classes=10, rounds=R, eval_every=R,
+                  cnn_width=32, seed=13),
+        x, y, xt, yt, parts, params=T.tree_map(lambda t: t.clone(), params_d0))
+    ops.reset_launch_counts()
+    round_s = []
+    for _ in range(R):
+        inputs = sim_d.next_round_inputs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = sim_d.run_round(*inputs)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        if not torch.isfinite(loss):
+            raise AssertionError(f"distill: non-finite loss {loss}")
+    distill_launches = ops.launch_counts()
+    want = expected_wire_launches("plain", R, n_leaves, H)
+    want.update(kd_loss=R * H, kd_loss_bwd=R * H)
+    log(f"distill: FedADC+ round seconds {round_s}, last loss {float(loss)}, "
+        f"accuracy {sim_d.evaluate()}")
+    log(f"distill: launches {distill_launches}, expected {want}")
+    if distill_launches != want:
+        raise AssertionError("distill: kernel launches differ from the count "
+                             "the rounds should make")
+    idle = profile_round(torch, sim_d, round_s, "distill profile", top=10)
+
+    def median_ms(seconds):
+        later = sorted(seconds[1:])
+        return later[len(later) // 2] * 1e3
+    log(f"distill: FedADC+ median round {median_ms(round_s):.3f} ms, idle "
+        f"share {idle}; plain FedADC (phase 3, same run) median round "
+        f"{median_ms(main_round_s):.3f} ms, idle share {main_idle}")
+    # the baselines at Table I's eta 0.05 (logged: from this init the
+    # full-width CNN's local steps diverge at that rate, under the plain CE
+    # of FedAvg as under every baseline), then at the main path's eta
+    runs = ([(n, TABLE1_ETA) for n in BASELINES + ("fedavg",)]
+            + [(n, ETA) for n in BASELINES])
+    for strategy, eta in runs:
+        sim_b = FederatedSimulator(
+            FedConfig(strategy=strategy, eta=eta),
+            SimConfig(model="cnn", n_classes=10, rounds=1, eval_every=1,
+                      cnn_width=32, seed=13),
+            x, y, xt, yt, parts,
+            params=T.tree_map(lambda t: t.clone(), params_d0))
+        inputs = sim_b.next_round_inputs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = sim_b.run_round(*inputs)
+        torch.cuda.synchronize()
+        extra = ""
+        if strategy == "moon":
+            n_bytes = sum(t.numel() * t.element_size()
+                          for st in sim_b.client_states.values()
+                          for t in T.leaves(st))
+            extra = (f"; {len(sim_b.client_states)} previous models kept, "
+                     f"{n_bytes} bytes on the card")
+        log(f"distill baseline {strategy} (eta {eta}): one round "
+            f"{time.perf_counter() - t0:.3f}s, loss {float(loss)}{extra}")
+        if eta == ETA and not torch.isfinite(loss):
+            raise AssertionError(f"distill baseline {strategy}: non-finite "
+                                 f"loss")
+        del sim_b
+    # the card (TF32 off) against the CPU on one one-step FedADC+ round from
+    # the same parameters and batches, at phase 3's one-step bar
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ends = []
+    for device in ("cuda", "cpu"):
+        sim_c = FederatedSimulator(
+            FedConfig(eta=ETA, local_steps=1, distill=True,
+                      distill_lambda=KD_LAM, distill_tau=KD_TAU),
+            SimConfig(cnn_width=32, seed=7), x, y, xt, yt, parts,
+            params=T.tree_map(lambda t: t.clone(), params0), device=device)
+        sim_c.run_round(*sim_c.next_round_inputs())
+        ends.append(T.tree_map(lambda t: t.cpu(), sim_c.params))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    num = sum(((a - b) ** 2).sum()
+              for a, b in zip(T.leaves(ends[0]), T.leaves(ends[1])))
+    den = sum(((b - p) ** 2).sum()
+              for b, p in zip(T.leaves(ends[1]), T.leaves(params0)))
+    err = (num / den).sqrt().item()
+    log(f"distill compare: one one-step FedADC+ round, |dθ card - dθ cpu| / "
+        f"|dθ cpu| = {err} (bar 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError("card and CPU disagree on a FedADC+ round")
+
+    # -- 6. ResNet-18 at CIFAR-100 shape ------------------------------------
     x100, y100, xt100, yt100 = make_image_dataset(50000, 10000, 100,
                                                   image_size=32)
     parts100 = dirichlet_partition(y100, n_clients=100, alpha=0.3)
@@ -649,18 +865,55 @@ def main():
         if counts != want:
             raise AssertionError(f"resnet18 wire {tag}: launches differ")
         del s
+    # ResNet-18 under FedADC+: the KD kernels at C=100
+    s = FederatedSimulator(FedConfig(local_steps=2, eta=ETA, distill=True),
+                           SimConfig(model="resnet18", n_classes=100,
+                                     rounds=1, eval_every=1),
+                           x100, y100, xt100, yt100, parts100)
+    ops.reset_launch_counts()
+    for r in range(2):
+        inputs = s.next_round_inputs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = s.run_round(*inputs)
+        torch.cuda.synchronize()
+        log(f"resnet18 fedadc+: round {r + 1} "
+            f"{time.perf_counter() - t0:.3f}s, loss {float(loss)}")
+        if not torch.isfinite(loss):
+            raise AssertionError("resnet18 fedadc+: non-finite loss")
+    counts = ops.launch_counts()
+    log(f"resnet18 fedadc+: launches {counts}")
+    if not counts["kd_loss"] == counts["kd_loss_bwd"] == 2 * 2:
+        raise AssertionError("resnet18 fedadc+: KD launches differ")
+    del s
 
-    # -- 6. the port's quickstart -------------------------------------------
+    # -- 7. the port's quickstart -------------------------------------------
     t0 = time.perf_counter()
     hist = quickstart.run(device="cuda")
     gap = hist["fedadc"][-1]["acc"] - hist["fedavg"][-1]["acc"]
     log(f"quickstart: {time.perf_counter() - t0:.1f}s, "
         f"FedADC - FedAvg = {gap:+.3f}")
 
+    # -- 8. the port's personalization example ------------------------------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    gains = personalization_example.run(device="cuda")
+    counts = ops.launch_counts()
+    # 20 FedADC+ rounds of H=8, then 60 calibration steps per client shown
+    want_kd = 20 * 8 + 60 * len(gains)
+    log(f"personalization: {time.perf_counter() - t0:.1f}s, mean gain "
+        f"{sum(gains) / len(gains):+.3f}; kd_loss {counts['kd_loss']}, "
+        f"kd_loss_bwd {counts['kd_loss_bwd']} launches (expected {want_kd})")
+    if not (gains and all(math.isfinite(g) for g in gains)
+            and counts["kd_loss"] == counts["kd_loss_bwd"] == want_kd):
+        raise AssertionError("personalization: bad gains or KD launches")
+
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     # launches: the update kernels' from the main path (phase 3), the wire
-    # kernels' from the wire phase (4)
+    # kernels' from the wire phase (4), the KD kernels' from FedADC+ (5)
     launches.update(wire_launches)
+    launches.update({n: distill_launches[n] for n in ("kd_loss",
+                                                      "kd_loss_bwd")})
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": TPU_KERNEL[name], "launches": launches[name],

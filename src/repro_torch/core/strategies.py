@@ -314,8 +314,8 @@ STRATEGIES: Dict[str, Any] = {
     (FedAvg(), SlowMo(), FedADC(), FedADCDouble(), FedProx(), Scaffold(),
      FedDyn())
 }
-# loss-modifier strategies reuse FedAvg's update algebra (their losses come
-# with the next slice; RoundProtocol rejects them until then)
+# loss-modifier strategies reuse FedAvg's update algebra; their local losses
+# are the simulator's (``FederatedSimulator._local_loss``)
 for alias in ("moon", "fedgkd", "fedntd", "fedrs"):
     STRATEGIES[alias] = FedAvg()
 

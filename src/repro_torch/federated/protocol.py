@@ -32,21 +32,12 @@ from repro_torch.federated.transport import Transport
 # are *uniform* means, so non-uniform weights would bias them
 STATEFUL_SERVER_CORRECTION = ("scaffold", "feddyn")
 
-# strategies whose local loss is not the plain cross-entropy
-LOSS_MODIFIERS = ("moon", "fedgkd", "fedntd", "fedrs")
-
-
 def check_supported(fed) -> None:
-    """Raise NotImplementedError for a config outside this slice."""
-    unsupported = []
-    if fed.strategy in LOSS_MODIFIERS:
-        unsupported.append(f"strategy={fed.strategy!r} (its local loss)")
-    if fed.distill:
-        unsupported.append("distill=True (FedADC+ self-confidence KD)")
+    """Raise NotImplementedError for a config outside the port so far: the
+    fleet's hierarchical aggregation."""
     if fed.fleet_regions > 0:
-        unsupported.append(f"fleet_regions={fed.fleet_regions}")
-    if unsupported:
-        raise NotImplementedError("not ported yet: " + ", ".join(unsupported))
+        raise NotImplementedError(
+            f"not ported yet: fleet_regions={fed.fleet_regions}")
 
 
 class RoundProtocol:

@@ -3,18 +3,21 @@
 
 Reproduces the paper's experimental setup: N clients with non-iid
 partitions, cN sampled per round, H local SGD steps, then the strategy's
-server update.  The engine drives the round protocol: per-client
-cross-round state (SCAFFOLD/FedDyn) and the uplink's error-feedback
-residuals live in the protocol's ``ClientStore``, both wire directions go
-through its ``Transport``, and the downlink reference through its
-``ReferenceStore``.
+server update.  The local objective is the strategy's: cross-entropy, the
+FedADC+ self-confidence KD (``distill=True``), or the FedGKD, FedNTD, FedRS
+and MOON losses.  The engine drives the round protocol: per-client
+cross-round state (SCAFFOLD/FedDyn control variates, MOON's previous local
+model) and the uplink's error-feedback residuals live in the protocol's
+``ClientStore``, both wire directions go through its ``Transport``, and the
+downlink reference through its ``ReferenceStore``.
 
 Where the reference vmaps one client's update over the round's K clients
 and scans the H steps, this engine keeps the K clients' parameters stacked
 on a leading axis of every leaf, takes the per-client gradients with
 ``torch.func.vmap(torch.func.grad_and_value(loss))``, and runs the H steps
 as a Python loop.  The update kernels then launch once per leaf on the
-stacked tensor, outside the vmap.
+stacked tensor, outside the vmap; the KD kernels launch inside it, once per
+step for all K clients, through their vmap rules.
 
 Client picks and batches come from one ``np.random.RandomState(seed)``
 consumed in the reference's order (the selector call, then one permutation
@@ -96,7 +99,7 @@ class FederatedSimulator:
         self.rng = np.random.RandomState(sim.seed)
         self.counts = class_counts(y_train, parts, sim.n_classes)
 
-        init, self.apply = VISION_MODELS[sim.model][:2]
+        init, self.apply, self.features = VISION_MODELS[sim.model][:3]
         if params is None:
             if sim.model == "cnn":
                 params = init(sim.seed, n_classes=sim.n_classes,
@@ -109,7 +112,9 @@ class FederatedSimulator:
             params = T.tree_map(lambda t: t.to(self.device), params)
         self.params = params
         self.server_state = self.strategy.server_init(self.params)
-        self.stateful = not self.strategy.stateless_clients
+        # MOON keeps each client's previous local model
+        self.stateful = not self.strategy.stateless_clients \
+            or fed.strategy == "moon"
         self.protocol.register_client_state(self._client_state_init)
         self.ef_enabled = self.protocol.ef_enabled
         self.protocol.register_ef(self._ef_init)
@@ -123,8 +128,6 @@ class FederatedSimulator:
         self.refs.seed(self.protocol.init_downlink_ref(self.server_state,
                                                        self.params))
         self._rounds_done = 0
-        self._grad = torch.func.vmap(torch.func.grad_and_value(
-            self._local_loss))
 
     @property
     def history(self) -> Sequence[Dict]:
@@ -166,6 +169,8 @@ class FederatedSimulator:
         return down is not None and down.lossy
 
     def _client_state_init(self):
+        if self.fed.strategy == "moon":
+            return {"prev": self.params}
         return self.strategy.client_state_init(self.params)
 
     def _ef_init(self):
@@ -174,14 +179,43 @@ class FederatedSimulator:
         # codec bypassed or lossless: the same placeholder as the reference
         return {"_": torch.zeros((), device=self.device)}
 
-    def _local_loss(self, theta, xb, yb):
-        """One client's local objective (the plain cross-entropy in this
-        slice; RoundProtocol rejects the loss-modifier strategies)."""
-        return D.cross_entropy(self.apply(theta, xb), yb)
+    def _local_loss(self, theta, xb, yb, theta_t, counts, cstate):
+        """One client's local objective (Sec. III / IV-A); ``theta_t`` is
+        the broadcast model (the teacher), ``counts`` the client's class
+        counts (C,), ``cstate`` its cross-round state."""
+        fed, sim = self.fed, self.sim
+        name = fed.strategy
+        logits = self.apply(theta, xb)
+        if fed.distill:   # FedADC+ self-confidence KD (eqs. 7-9)
+            t_logits = self.apply(theta_t, xb).detach()
+            loss, _ = D.self_confidence_kd_loss(
+                logits, t_logits, yb, counts, fed.distill_lambda,
+                fed.distill_tau)
+            return loss
+        if name == "fedgkd":
+            t_logits = self.apply(theta_t, xb).detach()
+            return D.fedgkd_loss(logits, t_logits, yb, sim.fedgkd_lambda,
+                                 sim.fedgkd_tau)[0]
+        if name == "fedntd":
+            t_logits = self.apply(theta_t, xb).detach()
+            return D.fedntd_loss(logits, t_logits, yb, sim.fedntd_beta,
+                                 sim.fedntd_tau)[0]
+        if name == "fedrs":
+            present = (counts > 0).float()
+            return D.cross_entropy(D.fedrs_logits(logits, present,
+                                                  sim.fedrs_alpha), yb)
+        if name == "moon":
+            z = self.features(theta, xb)
+            z_g = self.features(theta_t, xb).detach()
+            z_p = self.features(cstate["prev"], xb).detach()
+            return D.cross_entropy(logits, yb) + D.moon_loss(
+                z, z_g, z_p, sim.moon_mu, sim.moon_temp)
+        return D.cross_entropy(logits, yb)
 
-    def _client_update(self, theta_t, ctx, xb, yb, cstates):
-        """The round's K clients at once.  xb (K,H,b,...), yb (K,H,b) ->
-        (client-stacked deltas, new client states, mean loss, θ_H)."""
+    def _client_update(self, theta_t, ctx, xb, yb, counts, cstates):
+        """The round's K clients at once.  xb (K,H,b,...), yb (K,H,b),
+        counts (K,C) -> (client-stacked deltas, new client states, mean
+        loss, θ_H)."""
         strategy, fed = self.strategy, self.fed
         k, h_steps = xb.shape[:2]
 
@@ -195,12 +229,17 @@ class FederatedSimulator:
             extra = cstates
         else:
             extra = strategy.init_extra(theta, fed)
+        # θ, the batch, the counts and the client state per client; the
+        # broadcast θ_t (the teacher) shared
+        grad = torch.func.vmap(
+            torch.func.grad_and_value(self._local_loss),
+            in_dims=(0, 0, 0, None, 0, None if cstates is None else 0))
         losses = []
         for h in range(h_steps):
             bx, by = xb[:, h], yb[:, h]
 
             def grad_fn(th, _batch, bx=bx, by=by):
-                g, val = self._grad(th, bx, by)
+                g, val = grad(th, bx, by, theta_t, counts, cstates)
                 # the update kernels take contiguous operands
                 return T.tree_map(lambda x: x.contiguous(), g), val
             theta, extra, val = strategy.local_step(theta, ctx_k, grad_fn,
@@ -211,9 +250,11 @@ class FederatedSimulator:
         if hasattr(strategy, "client_state_update"):
             new_cstates = strategy.client_state_update(cstates, ctx_k,
                                                        theta_t, theta, fed)
+        elif fed.strategy == "moon":
+            new_cstates = {"prev": theta}
         return delta, new_cstates, torch.stack(losses).mean(), theta
 
-    def _round(self, xb, yb, cstates, n_examples, efs, keys, bcast):
+    def _round(self, xb, yb, counts, cstates, n_examples, efs, keys, bcast):
         """One round's device work.  ``keys`` = (uplink, downlink) draws;
         ``bcast`` is the (params_w, ctx) wire of the delta family computed
         through the ReferenceStore, or None to broadcast inline."""
@@ -226,7 +267,7 @@ class FederatedSimulator:
         else:
             params_w, ctx = bcast
         deltas, ncs, loss, theta_hs = self._client_update(params_w, ctx, xb,
-                                                          yb, cstates)
+                                                          yb, counts, cstates)
         if protocol.sparse_native:
             # encode only: the (values, indices) wire flows straight into
             # the sparse aggregate, with the same exact-complement EF
@@ -300,6 +341,8 @@ class FederatedSimulator:
         cstates = (self.protocol.store.gather("state", picks)
                    if self.stateful else None)
         efs = self.protocol.store.gather("ef", picks)
+        counts = torch.as_tensor(self.counts[picks], dtype=torch.float32,
+                                 device=self.device)
         n_examples = torch.tensor([len(self.parts[int(c)]) for c in picks],
                                   dtype=torch.float32, device=self.device)
         keys = (UniformDraws(self.uniforms, (t, "uplink"), self.device),
@@ -321,8 +364,8 @@ class FederatedSimulator:
             wire = self.refs.broadcast(t, compute_bcast)
         with self.telemetry.tracer.span("round"):
             (self.params, self.server_state, ncs, nefs,
-             loss) = self._round(xb, yb, cstates, n_examples, efs, keys,
-                                 bcast)
+             loss) = self._round(xb, yb, counts, cstates, n_examples, efs,
+                                 keys, bcast)
         if self.stateful:
             self.protocol.store.scatter("state", picks, ncs)
         if self.ef_enabled:

@@ -20,7 +20,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = (CSRC / "fedadc_kernels.cu", CSRC / "compress_kernels.cu")
+SOURCES = (CSRC / "fedadc_kernels.cu", CSRC / "compress_kernels.cu",
+           CSRC / "kd_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,6 +44,12 @@ SIGNATURES = {
         "fedadc_qsgd": [_P, _P, _P, _P, _P, _I64, _I64, _F, _INT, _P],
         "fedadc_sparse_reduce": [_P, _P, _P, _P, _I64, _I64, _I64, _INT,
                                  _INT, _P],
+    },
+    SOURCES[2]: {
+        "fedadc_kd_loss_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                               _I64, _F, _F, _INT, _P],
+        "fedadc_kd_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                               _F, _F, _INT, _P],
     },
 }
 # the source of every entry point

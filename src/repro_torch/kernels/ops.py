@@ -1,5 +1,5 @@
 """Per-leaf public wrappers around the port's kernels (the counterparts of
-the JAX package's ``kernels/ops.py:33-180``).
+the JAX package's ``kernels/ops.py:33-180`` and ``:202-204``).
 
 A CUDA tensor launches the Hopper kernel (or the kernel's wrapper raises);
 a CPU tensor takes the kernel's plain version from ``ref``.  The device of
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import compress as _cp
 from repro_torch.kernels import fedadc_update as _fu
+from repro_torch.kernels import kd_loss as _kd
 from repro_torch.kernels import ref
 from repro_torch.kernels import sparse_reduce as _sr
 from repro_torch.kernels import weighted_reduce as _wr
@@ -26,6 +27,8 @@ KERNELS = {
     "threshold_select": _cp.threshold_select,
     "qsgd": _cp.qsgd,
     "sparse_reduce": _sr.sparse_reduce,
+    "kd_loss": _kd.kd_loss,
+    "kd_loss_bwd": _kd.kd_loss_bwd,
 }
 
 
@@ -126,3 +129,17 @@ def sparse_weighted_delta_reduce(values, indices, weights, shape, dtype):
     return _sr.sparse_reduce(values.contiguous(),
                              indices.to(torch.int32).contiguous(),
                              weights.float().contiguous(), shape, dtype)
+
+
+# ---------------------------------------------------------------------------
+# self-confidence KD loss (FedADC+), differentiable in the student logits
+# ---------------------------------------------------------------------------
+def kd_loss(student_logits, teacher_logits, labels, rho, lam, tau):
+    """Per-row FedADC+ loss of logits (B, C), labels (B,) and ρ (C,) ->
+    (loss, ce, kl), each (B,) fp32, ``kl`` with its τ² factor.  Gradients
+    reach the student logits through ``loss`` (the backward kernel on the
+    card); the teacher and ρ are constants.  Works under
+    ``torch.func.vmap``: the vmapped calls of all clients make one launch."""
+    loss, ce, kl, _ = _kd.KDLoss.apply(student_logits, teacher_logits,
+                                       labels, rho.reshape(1, -1), lam, tau)
+    return loss, ce, kl

@@ -1,13 +1,16 @@
 """Plain PyTorch versions of the port's kernels (the counterparts of the
-JAX package's ``kernels/ref.py:15-84``).
+JAX package's ``kernels/ref.py:15-84`` and ``:140-159``).
 
 Each repeats its CUDA kernel's arithmetic: fp32 whatever the storage type,
 every multiply and add rounded on its own, one rounding to the output type
 on write, and the reduces summed client by client in order (QSGD instead
 rounds to its operand dtype after every operation, as the reference's jnp
 ops do; the threshold select only masks).  So on
-the same inputs a kernel and its plain version agree bit for bit.  The CPU
-runs these; on the card they are the yardstick the kernels are held to.
+the same inputs a kernel and its plain version agree bit for bit.  The
+self-confidence KD loss is the exception: its kernels reduce each row in
+another order than ``torch.logsumexp`` and ``sum`` do, so the two agree
+within fp32 rounding, not bit for bit.  The CPU runs these; on the card they
+are the yardstick the kernels are held to.
 """
 from __future__ import annotations
 
@@ -121,3 +124,85 @@ def topk_threshold_select(v, thresh):
     t = thresh.reshape((-1,) + (1,) * (v.dim() - 1))
     q = torch.where(torch.abs(v) >= t, v, torch.zeros_like(v))
     return q, v - q
+
+
+# ---------------------------------------------------------------------------
+# self-confidence KD loss (FedADC+, eqs. (7)-(9)), forward and backward
+# ---------------------------------------------------------------------------
+# per-row statistics the forward hands the backward, in this column order
+KD_STATS = ("lse", "lse_tau", "lse_teacher", "true_mass", "target_sum")
+
+
+def one_hot(labels, n_classes):
+    """(..., C) fp32 one-hot of int labels, by comparison: unlike
+    ``F.one_hot`` it reads no value on the host, so it works under vmap and
+    does not wait for the card."""
+    classes = torch.arange(n_classes, device=labels.device)
+    return (labels.long()[..., None] == classes).float()
+
+
+def row_rho(rho, rows):
+    """ρ of every row: ``rho`` (C,) for all rows, or (G, C) with rows/G
+    consecutive rows per group -> (rows, C) fp32."""
+    rho = rho.float().reshape(-1, rho.shape[-1])
+    if rows % rho.shape[0]:
+        raise ValueError(f"kd_loss: {rows} rows do not split into "
+                         f"{rho.shape[0]} groups")
+    return rho.repeat_interleave(rows // rho.shape[0], dim=0)
+
+
+def kd_loss(student_logits, teacher_logits, labels, rho, lam, tau):
+    """Per-row (1 − λ)·CE + λ·τ²·KL(target ‖ softmax(s/τ)), the target built
+    from the teacher's softmax at τ damped by (1 − ρ) with the leftover mass
+    on the true class (eqs. (8)-(9)).  ``rho`` is (C,) or (G, C) (see
+    ``row_rho``).  -> (loss, ce, kl, stats), each (B,) fp32 but ``stats``
+    (B, 5) fp32 in ``KD_STATS`` order; ``kl`` carries the τ² factor."""
+    s = student_logits.float()
+    t = teacher_logits.float()
+    C = s.shape[-1]
+    rho = row_rho(rho, s.shape[0])
+    p_t = torch.softmax(t / tau, -1)
+    onehot = one_hot(labels, C)
+    damp = (1.0 - rho) * p_t
+    non_true = damp * (1.0 - onehot)
+    true_mass = 1.0 - non_true.sum(-1, keepdim=True)
+    target = non_true + onehot * true_mass
+    # CE
+    lse = torch.logsumexp(s, -1)
+    gold = torch.sum(s * onehot, -1)
+    ce = lse - gold
+    # KL(target ‖ student_T)
+    st = s / tau
+    lse_tau = torch.logsumexp(st, -1)
+    logp = st - lse_tau[:, None]
+    tgt = torch.clamp(target, 1e-9, 1.0)
+    kl = torch.sum(tgt * (torch.log(tgt) - logp), -1) * tau ** 2
+    stats = torch.stack([lse, lse_tau, torch.logsumexp(t / tau, -1),
+                         true_mass[:, 0], tgt.sum(-1)], -1)
+    return (1 - lam) * ce + lam * kl, ce, kl, stats
+
+
+def kd_loss_bwd(student_logits, teacher_logits, labels, rho, stats, g, lam,
+                tau):
+    """∂(Σ_i g_i·loss_i)/∂s in closed form from the forward's row ``stats``:
+
+        g_i·[(1−λ)(softmax(s)_j − 1[j=y]) + λ·τ·(S·softmax(s/τ)_j − tgt_j)]
+
+    with tgt the clipped target and S = Σ_j tgt_j (the clip means S need
+    not be 1).  The target is a constant (the reference's stop_gradient):
+    nothing flows to the teacher or ρ.  -> ∂/∂s in the logits' dtype."""
+    s = student_logits.float()
+    t = teacher_logits.float()
+    C = s.shape[-1]
+    rho = row_rho(rho, s.shape[0])
+    lse, lse_tau, lse_teacher, true_mass, target_sum = (
+        c[:, None] for c in stats.float().unbind(-1))
+    onehot = one_hot(labels, C)
+    p = torch.exp(s - lse)
+    p_tau = torch.exp(s / tau - lse_tau)
+    p_t = torch.exp(t / tau - lse_teacher)
+    tgt = torch.clamp(torch.where(onehot > 0, true_mass, (1.0 - rho) * p_t),
+                      1e-9, 1.0)
+    ds = g.float()[:, None] * ((1 - lam) * (p - onehot)
+                               + lam * tau * (target_sum * p_tau - tgt))
+    return ds.to(student_logits.dtype)

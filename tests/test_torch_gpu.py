@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card; each skips without one: the
-seven kernels against their plain versions, and rounds of the simulator on
-the card (plain wire, dense and sparse top-k).
+nine kernels against their plain versions, and rounds of the simulator on
+the card (plain wire, dense and sparse top-k, FedADC+).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch:
@@ -17,6 +17,7 @@ from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.federated.simulator import FederatedSimulator, SimConfig
 from repro_torch.kernels import compress as CP
 from repro_torch.kernels import fedadc_update as FU
+from repro_torch.kernels import kd_loss as KD
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sparse_reduce as SR
 from repro_torch.kernels import weighted_reduce as WR
@@ -219,3 +220,72 @@ def test_dense_and_sparse_topk_rounds_on_the_card():
                                                    T.leaves(updates[1])))
     den = sum((a ** 2).sum() for a in T.leaves(updates[0]))
     assert (num / den).sqrt().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kd_kernels_match_plain(dtype):
+    """The KD forward and backward kernels against their plain versions at
+    the reference sweep's shapes, the main path's folded (512, 10) with 8
+    groups of ρ, and a C above the one-warp-a-row limit.  Forward (loss,
+    CE, KL and the statistics) within the reference's bar, atol 1e-5 and
+    rtol 1e-4; backward within 1e-5 of the gradient's largest magnitude.
+    Neither is bit for bit: the kernels reduce each row in another order
+    than ``logsumexp`` and ``sum`` do.  One ρ class is fully confident, so
+    its target sits at the clip."""
+    need_card()
+    g = torch.Generator().manual_seed(4)
+    for rows, n_classes, groups in ((8, 10, 1), (64, 37, 1), (128, 100, 1),
+                                    (31, 257, 1), (512, 10, 8),
+                                    (6, 3000, 2)):
+        s, t = ((2 * torch.randn(rows, n_classes, generator=g)).to("cuda",
+                                                                    dtype)
+                for _ in range(2))
+        y = torch.randint(0, n_classes, (rows,), generator=g).cuda()
+        rho = torch.rand(groups, n_classes, generator=g).cuda()
+        rho[:, 0] = 1.0
+        got = KD.kd_loss(s, t, y, rho, 0.35, 2.0)
+        want = ref.kd_loss(s, t, y, rho, 0.35, 2.0)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+        up = torch.rand(rows, generator=g).cuda()
+        ds = KD.kd_loss_bwd(s, t, y, rho, got[3], up, 0.35, 2.0)
+        ds_plain = ref.kd_loss_bwd(s, t, y, rho, got[3], up, 0.35, 2.0)
+        assert ds.dtype == dtype
+        err = (ds.float() - ds_plain.float()).abs().max()
+        assert err <= 1e-5 * ds_plain.float().abs().max()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_fedadc_plus_rounds_on_the_card_match_the_cpu():
+    """Two one-step FedADC+ rounds on the card (TF32 off) and on the CPU
+    from the same parameters and batches agree within 1e-4 relative, as
+    the plain FedADC rounds do; each step launches the KD forward and
+    backward kernels once for all clients."""
+    need_card()
+    x, y, xt, yt = make_image_dataset(400, 50, 10, image_size=16)
+    parts = sort_and_partition(y, 10, s=2)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sims = []
+        ops.reset_launch_counts()
+        for device in ("cuda", "cpu"):
+            s = FederatedSimulator(
+                FedConfig(distill=True, local_steps=1, clients_per_round=3,
+                          n_clients=10, eta=0.01),
+                SimConfig(batch_size=16, cnn_width=8, seed=3), x, y, xt, yt,
+                parts, device=device)
+            start = T.tree_map(lambda t: t.cpu().clone(), s.params)
+            for _ in range(2):
+                s.run_round(*s.next_round_inputs())
+            sims.append(s)
+        counts = ops.launch_counts()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    assert counts["kd_loss"] == 2 and counts["kd_loss_bwd"] == 2
+    assert update_rel_err(sims[0].params, sims[1].params, start) <= 1e-4

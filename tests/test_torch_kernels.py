@@ -1,5 +1,6 @@
 """The port's four update kernels, held against the JAX package (the
-three wire kernels are in ``test_torch_compression.py``).
+three wire kernels are in ``test_torch_compression.py``, the KD loss in
+``test_torch_distillation.py``).
 
 On the CPU the port's wrappers (``repro_torch.kernels.ops``) run the plain
 PyTorch versions; each is compared with the reference's Pallas kernel in
@@ -27,6 +28,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import compress as CP
 from repro_torch.kernels import fedadc_update as FU
+from repro_torch.kernels import kd_loss as KD
 from repro_torch.kernels import ops
 from repro_torch.kernels import sparse_reduce as SR
 from repro_torch.kernels import weighted_reduce as WR
@@ -170,10 +172,15 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
     ops.sparse_weighted_delta_reduce(rows, torch.zeros((2, 100),
                                                        dtype=torch.int32),
                                      torch.ones(2), (100,), torch.float32)
+    labels = torch.zeros(2, dtype=torch.int64)
+    logits = rows.clone().requires_grad_()
+    ops.kd_loss(logits, rows, labels, torch.ones(100), 0.35, 1.0)[0].sum(
+        ).backward()
     assert ops.launch_counts() == {"fused_axpy": 0, "local_update": 0,
                                    "server_update": 0, "weighted_reduce": 0,
                                    "threshold_select": 0, "qsgd": 0,
-                                   "sparse_reduce": 0}
+                                   "sparse_reduce": 0, "kd_loss": 0,
+                                   "kd_loss_bwd": 0}
     with pytest.raises(ValueError, match="CUDA"):
         FU.fused_axpy(x, x, 0.5)
     with pytest.raises(ValueError, match="CUDA"):
@@ -189,3 +196,9 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
     with pytest.raises(ValueError, match="CUDA"):
         SR.sparse_reduce(rows, torch.zeros((2, 100), dtype=torch.int32),
                          torch.ones(2), (100,), torch.float32)
+    rho = torch.ones(1, 100)
+    with pytest.raises(ValueError, match="CUDA"):
+        KD.kd_loss(rows, rows, labels, rho, 0.35, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        KD.kd_loss_bwd(rows, rows, labels, rho, torch.zeros(2, 5),
+                       torch.ones(2), 0.35, 1.0)
