@@ -20,9 +20,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               groups of rho), ResNet-18's (512, 100), the reference sweep's
               (31, 257) and (64, 37) and an LM vocabulary's (1024, 32768),
               forward within atol 1e-5 + rtol 1e-4, backward within 1e-5 of
-              the gradient's largest magnitude; then time each kernel, its
+              the gradient's largest magnitude; flash attention in fp32 and
+              bf16 at the reference sweep (MHA, GQA 2, MQA at D 128, L 192,
+              windows 32/64/128), zamba2-1.2b's prefill (B 4, H 32, L 2048,
+              D 64) and Qwen3's GQA 32/8 at D 128, within 2e-5 / 2e-2 abs +
+              rel; the SSD scan at the reference sweep, a ragged L 300 and
+              zamba2-1.2b's prefill (b 4, L 2048, H 64, P 64, N 64, chunk
+              256), within 2e-5 / 5e-2 of max |y|; then time each kernel, its
               plain version and, where one PyTorch call computes the same
-              function, that call;
+              function, that call (flash: scaled_dot_product_attention),
+              and both LM kernels at the prefill_32k length (L 32768);
 3. main     — the paper CNN at width 32 on 32x32x3 images at CIFAR-10
               cardinality (50000/10000), sort-and-partition s=2 over 100
               clients, FedConfig defaults (|S|=8, H=8, nesterov) but eta 0.01,
@@ -61,11 +68,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               kernels at C=100);
 7. quickstart — the port's quickstart (40 rounds of FedAvg and FedADC);
 8. personalization — the port's personalization example (20 FedADC+
-              rounds, then head calibration with the KD regulariser).
+              rounds, then head calibration with the KD regulariser);
+9. serve    — zamba2-1.2b at full width (1,104,937,856 parameters, fp32,
+              initialised on the card from a seed): (a) the prefill step's
+              kernel route on B 4 x L 2048 prompts (numpy seed 0), exactly
+              38 ssd_scan and 6 flash_attention launches a forward, first
+              tokens and last-position logits against the use_pallas=False
+              route (1e-3 of max |logit| in fp32; 5e-2 in bf16, run once
+              more), one profiled prefill; (b) one prefill_32k sequence
+              (L 32768), timed, with the same checks; (c) the
+              ServingEngine, 4 slots, chunk 16, 8 requests of 32-128 prompt
+              tokens and 32 new tokens, greedy then temperature 0.8 /
+              top_k 40, and greedy on one slot: every request finishes, the
+              batched logits within 1e-4 of max |logit| of the one-slot
+              engine's and the tokens equal wherever the top-2 margin
+              exceeds that; (d) the card (TF32 off) against the CPU at the
+              depth of the first period (6 Mamba2 blocks and the shared
+              attention), L 512, within 1e-4 of max |logit|.  Tokens of two
+              routes may differ only at a near-tie (top-2 margin under the
+              logit bound), which is logged.
 
 Every time is measured here, on the card named in the output.  Bounds use
-the H100 SXM data sheet: 3.35 TB/s of HBM and 67 TFLOP/s of fp32 outside
-the tensor cores.
+the H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s of fp32 outside the
+tensor cores and 989 TFLOP/s of bf16 in them.
 """
 import json
 import math
@@ -77,6 +102,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 TPU_KERNEL = {
     "fused_axpy": "src/repro/kernels/fedadc_update.py:62",
     "local_update": "src/repro/kernels/fedadc_update.py:66",
@@ -88,6 +114,8 @@ TPU_KERNEL = {
     # the Pallas kd_loss has no backward; kd_loss_bwd is its gradient
     "kd_loss": "src/repro/kernels/kd_loss.py:55",
     "kd_loss_bwd": "src/repro/kernels/kd_loss.py:55",
+    "flash_attention": "src/repro/kernels/flash_attention.py:74",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:58",
 }
 UPDATE_SOURCE = "src/repro_torch/csrc/fedadc_kernels.cu"
 WIRE_SOURCE = "src/repro_torch/csrc/compress_kernels.cu"
@@ -96,6 +124,8 @@ SOURCE = {name: (WIRE_SOURCE if name in ("threshold_select", "qsgd",
                                          "sparse_reduce")
                  else KD_SOURCE if name.startswith("kd_") else UPDATE_SOURCE)
           for name in TPU_KERNEL}
+SOURCE["flash_attention"] = "src/repro_torch/csrc/attention_kernels.cu"
+SOURCE["ssd_scan"] = "src/repro_torch/csrc/ssd_kernels.cu"
 K = 8
 ETA = 0.01
 TOPK_FRAC = 0.1
@@ -329,7 +359,8 @@ def expected_wire_launches(tag, rounds, n_leaves, h_steps):
                  # (FedADC's ctx is derived from it, not sent)
                  "qsgd": 2 * n_leaves if tag == "c_qsgd_delta_qsgd" else 0,
                  "sparse_reduce": n_leaves if tag == "b_topk_sparse" else 0,
-                 "kd_loss": 0, "kd_loss_bwd": 0}
+                 "kd_loss": 0, "kd_loss_bwd": 0, "flash_attention": 0,
+                 "ssd_scan": 0}
     return {name: rounds * n for name, n in per_round.items()}
 
 
@@ -369,7 +400,431 @@ def leaf_shapes(params):
     return [tuple(t.shape) for t in leaves(params)]
 
 
+# -- the LM kernels (flash attention, SSD scan) and the serve phase ---------
+# check shapes: flash (B, H, Hk, L, D, window) — the reference sweep
+# (tests/test_kernels.py:23-53), zamba2-1.2b's prefill and Qwen3's heads
+FLASH_SHAPES = [(1, 2, 2, 128, 64, 0), (2, 4, 2, 256, 64, 0),
+                (1, 8, 1, 128, 128, 0), (1, 4, 4, 192, 64, 0),
+                (1, 2, 2, 256, 64, 32), (1, 2, 2, 256, 64, 64),
+                (1, 2, 2, 256, 64, 128), (4, 32, 32, 2048, 64, 0),
+                (1, 32, 8, 1024, 128, 0)]
+# SSD (b, L, H, P, N, chunk) — the reference sweep (:78-93), a ragged L and
+# zamba2-1.2b's prefill
+SSD_SHAPES = [(1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32),
+              (1, 256, 2, 64, 64, 64), (2, 96, 3, 16, 8, 32),
+              (1, 300, 4, 64, 64, 256), (4, 2048, 64, 64, 64, 256)]
+FLASH_BAR = {"float32": 2e-5, "bfloat16": 2e-2}   # abs and rel, :38-53
+SSD_BAR = {"float32": 2e-5, "bfloat16": 5e-2}     # of max |y|, :89-93
+ZAMBA = "zamba2-1.2b"
+SERVE_B, SERVE_L, LONG_L = 4, 2048, 32768
+
+
+def visible_pairs(L, window):
+    """(query, key) pairs the causal mask, and the window, leave."""
+    if window <= 0:
+        return L * (L + 1) // 2
+    return sum(min(q + 1, window) for q in range(L))
+
+
+def flash_bound(B, H, Hk, L, D, window, elem_bytes):
+    """(bound_ms, bound_by, flops): 4·D flops per visible pair per (batch,
+    head) against fp32's or bf16's peak, q, k, v read and o written once
+    against HBM."""
+    flops = 4 * B * H * D * visible_pairs(L, window)
+    nbytes = elem_bytes * B * L * D * (2 * H + 2 * Hk)
+    rate = FP32_FLOP_PER_S if elem_bytes == 4 else BF16_FLOP_PER_S
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), flops
+
+
+def ssd_bound(b, L, H, P, N, chunk, elem_bytes):
+    """(bound_ms, bound_by, flops) of one SSD scan: per (batch, head,
+    chunk of q positions) the causal scores and their product with x,
+    (q² + q)(N + P), the carried term and the state update, 4qNP; x·dt
+    and a read in fp32, B, C and y in the working type, against HBM."""
+    Q = min(chunk, L)
+    flops = 0
+    for c0 in range(0, L, Q):
+        q = min(Q, L - c0)
+        flops += (q * q + q) * (N + P) + 4 * q * N * P
+    flops *= b * H
+    nbytes = b * L * H * (4 * P + 4 + elem_bytes * (2 * N + P))
+    rate = FP32_FLOP_PER_S if elem_bytes == 4 else BF16_FLOP_PER_S
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), flops
+
+
+def flash_operands(torch, shape, dtype, gen):
+    B, H, Hk, L, D, _ = shape
+    return (torch.randn(B, L, H, D, generator=gen).to("cuda", dtype),
+            torch.randn(B, L, Hk, D, generator=gen).to("cuda", dtype),
+            torch.randn(B, L, Hk, D, generator=gen).to("cuda", dtype))
+
+
+def ssd_operands(torch, shape, dtype, gen):
+    """The kernel's pre-gated operands (x·dt, the log decay, B, C) from a
+    Mamba2-like draw: dt = softplus(N(0, 1)), A_log = log(1..H)."""
+    from repro_torch.kernels import ref
+    b, L, H, P, N, _ = shape
+    x = torch.randn(b, L, H, P, generator=gen).to("cuda", dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, L, H, generator=gen))
+    A_log = torch.log(torch.arange(1, H + 1, dtype=torch.float32))
+    xdt, a = ref.ssd_prologue(x, dt.cuda(), A_log.cuda())
+    Bm, Cm = (torch.randn(b, L, H, N, generator=gen).to("cuda", dtype)
+              for _ in range(2))
+    return xdt, a, Bm, Cm
+
+
+def lm_kernel_checks(torch, FA, SSD, ref, gen, errs):
+    """Hold flash attention and the SSD scan against their plain versions
+    on the card at FLASH_SHAPES and SSD_SHAPES, fp32 and bf16, at the
+    reference's bars; record each kernel's largest absolute error."""
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for shape in FLASH_SHAPES:
+            q, k, v = flash_operands(torch, shape, dtype, gen)
+            got = FA.flash_attention(q, k, v, True, shape[5])
+            want = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), True,
+                                       shape[5]).transpose(1, 2)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            excess = (diff - FLASH_BAR[name] * want.float().abs()).max()
+            log(f"check flash_attention {name} (B, H, Hk, L, D, window) "
+                f"{shape}: max |kernel - plain| = {diff.max().item()} (bar "
+                f"{FLASH_BAR[name]} abs + rel, excess {excess.item()})")
+            if not excess.item() <= FLASH_BAR[name]:
+                raise AssertionError(f"flash_attention {name} {shape}: "
+                                     f"kernel differs from plain")
+            errs["flash_attention"] = max(errs["flash_attention"],
+                                          diff.max().item())
+            del q, k, v, got, want, diff
+        for shape in SSD_SHAPES:
+            xdt, a, Bm, Cm = ssd_operands(torch, shape, dtype, gen)
+            got = SSD.ssd_scan(xdt, a, Bm, Cm, shape[5], dtype).float()
+            want = ref.ssd_recurrence(xdt, a, Bm, Cm).to(dtype).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            log(f"check ssd_scan {name} (b, L, H, P, N, chunk) {shape}: max "
+                f"|kernel - plain| = {err}, {rel} of max |y| (bar "
+                f"{SSD_BAR[name]})")
+            if not rel <= SSD_BAR[name]:
+                raise AssertionError(f"ssd_scan {name} {shape}: kernel "
+                                     f"differs from plain")
+            errs["ssd_scan"] = max(errs["ssd_scan"], err)
+            del xdt, a, Bm, Cm, got, want
+
+
+def lm_kernel_times(torch, FA, SSD, ref, gen):
+    """Time both kernels, their plain versions and (flash) the library's
+    scaled_dot_product_attention at zamba2-1.2b's prefill shapes in fp32
+    -> the `kernels` line's records; then log the prefill_32k shape."""
+    F = torch.nn.functional
+    timed = {}
+    fshape = FLASH_SHAPES[7]
+    q, k, v = flash_operands(torch, fshape, torch.float32, gen)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    b_ms, b_by, flops = flash_bound(*fshape, elem_bytes=4)
+    timed["flash_attention"] = {
+        "ms": cuda_ms(torch, lambda: FA.flash_attention(q, k, v, True, 0)),
+        "plain_ms": cuda_ms(torch, lambda: ref.flash_attention(
+            qt, kt, vt, True, 0)),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    log(f"time flash_attention {fshape} fp32 ({flops:.4g} flops): "
+        f"{json.dumps(timed['flash_attention'])}")
+    del q, k, v, qt, kt, vt
+    sshape = SSD_SHAPES[-1]
+    xdt, a, Bm, Cm = ssd_operands(torch, sshape, torch.float32, gen)
+    b_ms, b_by, flops = ssd_bound(*sshape, elem_bytes=4)
+    timed["ssd_scan"] = {
+        "ms": cuda_ms(torch, lambda: SSD.ssd_scan(xdt, a, Bm, Cm, 256,
+                                                  torch.float32)),
+        "plain_ms": cuda_ms(torch, lambda: ref.ssd_recurrence(xdt, a, Bm, Cm),
+                            iters=3, warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"time ssd_scan {sshape} fp32 ({flops:.4g} flops): "
+        f"{json.dumps(timed['ssd_scan'])}")
+    del xdt, a, Bm, Cm
+    # the prefill_32k shape (batch 1): the plain flash attention would need
+    # the (L, L) scores, 137 GB, so only the kernel and the library
+    for dtype, eb in ((torch.float32, 4), (torch.bfloat16, 2)):
+        lshape = (1, 32, 32, LONG_L, 64, 0)
+        q, k, v = flash_operands(torch, lshape, dtype, gen)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        b_ms, b_by, flops = flash_bound(*lshape, elem_bytes=eb)
+        log(f"time flash_attention {lshape} {dtype}: ms="
+            f"{cuda_ms(torch, lambda: FA.flash_attention(q, k, v), 3, 1)} "
+            f"library_ms={cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 3, 1)} "
+            f"bound_ms={b_ms} ({b_by}, {flops:.4g} flops)")
+        del q, k, v, qt, kt, vt
+        sshape = (1, LONG_L, 64, 64, 64, 256)
+        xdt, a, Bm, Cm = ssd_operands(torch, sshape, dtype, gen)
+        b_ms, b_by, flops = ssd_bound(*sshape, elem_bytes=eb)
+        plain = cuda_ms(torch, lambda: ref.ssd_recurrence(xdt, a, Bm, Cm),
+                        1, 0) if dtype == torch.float32 else None
+        log(f"time ssd_scan {sshape} {dtype}: ms="
+            f"{cuda_ms(torch, lambda: SSD.ssd_scan(xdt, a, Bm, Cm, 256, dtype), 3, 1)} "
+            f"plain_ms={plain} bound_ms={b_ms} ({b_by}, {flops:.4g} flops)")
+        del xdt, a, Bm, Cm
+    return timed
+
+
+def check_tokens(tag, got, want, ref_logits, bound):
+    """Tokens of two routes agree wherever the reference logits' top-2
+    margin exceeds `bound`; a differing token below it is logged as a
+    near-tie.  -> the number of near-ties."""
+    top2 = ref_logits.float().topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu()
+    ties = 0
+    for i, (a, b) in enumerate(zip(got.tolist(), want.tolist())):
+        if a == b:
+            continue
+        log(f"{tag}: row {i} token {a} vs {b}, top-2 margin "
+            f"{margin[i].item()} (bound {bound})")
+        if margin[i].item() > bound:
+            raise AssertionError(f"{tag}: tokens differ above the bound")
+        ties += 1
+    return ties
+
+
+def counted_forward(ops, fn, n_mamba, n_attn, totals):
+    """Run one kernel-route forward with the counts set to 0 just before
+    and read just after: exactly one ssd_scan per Mamba2 block and one
+    flash_attention per shared-attention block."""
+    ops.reset_launch_counts()
+    out = fn()
+    got = ops.launch_counts()
+    if (got["ssd_scan"], got["flash_attention"]) != (n_mamba, n_attn) or \
+            sum(got.values()) != n_mamba + n_attn:
+        raise AssertionError(f"serve: one forward launched {got}, expected "
+                             f"{n_mamba} ssd_scan and {n_attn} "
+                             f"flash_attention")
+    for k in ("ssd_scan", "flash_attention"):
+        totals[k] += got[k]
+    return out
+
+
+def serve_phase(torch, np):
+    """Zamba2-1.2B at full width on the card: (a) the prefill step on B 4 x
+    L 2048 in fp32 and bf16, (b) one prefill_32k sequence, (c) the
+    continuous-batching engine, (d) the card against the CPU at depth 7.
+    -> the kernel launches of the kernel-route forwards of (a) and (b)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import MAMBA2, SHARED_ATTN
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models.registry import count_params, get_model
+    from repro_torch.serving import (SamplingParams, SchedulerConfig,
+                                     ServingEngine, latency_summary)
+    cfg = get_arch(ZAMBA)
+    model = get_model(cfg)
+    V = cfg.vocab_size
+    n_mamba = sum(k == MAMBA2 for k in cfg.blocks())
+    n_attn = sum(k == SHARED_ATTN for k in cfg.blocks())
+    totals = {"ssd_scan": 0, "flash_attention": 0}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    log(f"serve: {ZAMBA} at full width ({n_mamba} Mamba2 blocks, shared "
+        f"attention x{n_attn}), {count_params(cfg)} parameters, fp32 init on "
+        f"the card in {time.perf_counter() - t0:.2f}s; TF32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
+        f"{torch.backends.cudnn.allow_tf32} (library defaults; no "
+        f"convolution runs through cuDNN here)")
+
+    def last_logits(p, toks, use_pallas):
+        logits, _ = model.forward(p, {"tokens": toks}, cfg, use_pallas,
+                                  logits_slice="last")
+        return logits[:, -1].float()
+
+    def compare_routes(tag, p, toks, rel_bound, repeats):
+        """The kernel route (prefill step, timed) against the
+        use_pallas=False route: first tokens and last-position logits."""
+        kernel_step = make_prefill_step(cfg, use_pallas=True)
+        batch = {"tokens": toks}
+        first = counted_forward(ops, lambda: kernel_step(p, batch), n_mamba,
+                                n_attn, totals)
+        times = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            counted_forward(ops, lambda: kernel_step(p, batch), n_mamba,
+                            n_attn, totals)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        got = counted_forward(ops, lambda: last_logits(p, toks, True),
+                              n_mamba, n_attn, totals)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = last_logits(p, toks, False)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if not (torch.isfinite(got).all() and got.shape == (toks.shape[0],
+                                                            V)):
+            raise AssertionError(f"{tag}: bad logits {got.shape}")
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        ties = check_tokens(tag, first, want.argmax(-1).int(), want,
+                            rel_bound * scale)
+        log(f"{tag}: prefill step (kernel route) seconds {times}, the "
+            f"use_pallas=False route's forward {plain_s:.3f}s; last-position "
+            f"logits max |kernel - plain route| = {err} = {err / scale} of "
+            f"max |logit| {scale} (bar {rel_bound}); first tokens "
+            f"{first.tolist()}, {ties} near-ties; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not err <= rel_bound * scale:
+            raise AssertionError(f"{tag}: the routes' logits differ")
+        return times
+
+    # (a) B 4 x L 2048, fp32 then bf16
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, V, (SERVE_B, SERVE_L))).cuda()
+    compare_routes(f"serve (a) fp32 B {SERVE_B} L {SERVE_L}", params, toks,
+                   1e-3, repeats=2)
+    # one profiled prefill: device time by kernel and the idle share
+    step = make_prefill_step(cfg, use_pallas=True)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        counted_forward(ops, lambda: step(params, {"tokens": toks}), n_mamba,
+                        n_attn, totals)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log(f"serve profile: prefill B {SERVE_B} L {SERVE_L} fp32, kernels busy "
+        f"{busy:.3f} ms of a profiled wall {wall_ms:.3f} ms (idle share "
+        f"{1 - busy / wall_ms if busy else 'not measured'})")
+    for key, ms, count in rows[:12]:
+        log(f"serve profile:   {ms:9.3f} ms  x{count:<5} {key[:90]}")
+    params_bf = model.init(0, cfg, dtype=torch.bfloat16, device="cuda")
+    compare_routes(f"serve (a) bf16 B {SERVE_B} L {SERVE_L}", params_bf, toks,
+                   5e-2, repeats=1)
+    del params_bf
+
+    # (b) one sequence at the prefill_32k length
+    long_toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, V, (1, LONG_L))).cuda()
+    compare_routes(f"serve (b) fp32 B 1 L {LONG_L}", params, long_toks, 1e-3,
+                   repeats=1)
+    del long_toks
+    launches = dict(totals)
+    log(f"serve: kernel launches of the kernel-route forwards {launches}")
+
+    # (c) the engine: 4 slots, chunk 16, 8 requests of 32-128 tokens, 32
+    # new tokens each; greedy, then sampled; greedy again on one slot
+    class Recording(ServingEngine):
+        """Keeps every sampled row's logits by (rid, output position)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.logits = {}
+
+        def _sample(self, logits, reqs):
+            rows = logits.float().cpu()
+            for i, r in enumerate(reqs):
+                if r is not None:
+                    self.logits[(r.rid, len(r.out_tokens))] = rows[i]
+            return super()._sample(logits, reqs)
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, V, n).tolist()
+               for n in rng.randint(32, 129, size=8)]
+    gen = 32
+
+    def engine_run(tag, n_slots, sampling=None):
+        eng = Recording(cfg, params, SchedulerConfig(
+            n_slots=n_slots, max_len=128 + gen, prefill_chunk=16),
+            device="cuda")
+        for i, p in enumerate(prompts):
+            eng.add_request(p, gen, sampling(i) if sampling else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(o.tokens) for o in outs)
+        lat = latency_summary(outs)
+        log(f"serve (c) {tag}: {len(outs)} requests on {n_slots} slots, "
+            f"{n_tok} tokens in {wall:.3f}s ({n_tok / wall:.2f} tok/s), "
+            f"{eng.n_steps} engine steps; TTFT p50 {lat['ttft_s']['p50']}s, "
+            f"e2e p50 {lat['e2e_s']['p50']}s, ITL p50 "
+            f"{lat['itl_s']['p50']}s")
+        if len(outs) != len(prompts) or any(len(o.tokens) != gen
+                                            for o in outs):
+            raise AssertionError(f"serve (c) {tag}: requests unfinished")
+        return outs, eng.logits
+
+    greedy, rec4 = engine_run("greedy", 4)
+    engine_run("temperature 0.8, top_k 40", 4,
+               lambda i: SamplingParams(temperature=0.8, top_k=40, seed=i))
+    alone, rec1 = engine_run("greedy, one slot", 1)
+    # batched against alone: logits within the bound up to each request's
+    # first differing token, and the tokens wherever the margin exceeds it
+    scale = max(v.abs().max().item() for v in rec1.values())
+    bound = 1e-4 * scale
+    worst, ties = 0.0, 0
+    for a, b in zip(greedy, alone):
+        for pos in range(gen):
+            la, lb = rec4[(a.rid, pos)], rec1[(b.rid, pos)]
+            worst = max(worst, (la - lb).abs().max().item())
+            if a.tokens[pos] != b.tokens[pos]:
+                ties += check_tokens(f"serve (c) rid {a.rid} position {pos}",
+                                     torch.tensor([a.tokens[pos]]),
+                                     torch.tensor([b.tokens[pos]]),
+                                     lb[None], bound)
+                break
+    log(f"serve (c) batched vs alone: greedy tokens "
+        f"{'equal' if ties == 0 else f'{ties} near-ties'}; max |logit "
+        f"batched - alone| = {worst} = {worst / scale} of max |logit| "
+        f"{scale} (bar 1e-4)")
+    if worst > bound:
+        raise AssertionError("serve (c): batched and alone logits differ")
+    del params
+
+    # (d) the card (TF32 off) against the CPU: full width, depth of the
+    # first period (6 Mamba2 blocks and the shared attention), L 512
+    short = replace(cfg, block_pattern=cfg.block_pattern[:7], n_layers=6)
+    smodel = get_model(short)
+    p_cpu = smodel.init(3, short, device="cpu")
+    p_card = T.tree_map(lambda t: t.cuda(), p_cpu)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(0, V, (1, 512)))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = smodel.forward(p_card, {"tokens": toks.cuda()}, short, True,
+                          logits_slice="last")[0].float().cpu()
+    t0 = time.perf_counter()
+    cpu = smodel.forward(p_cpu, {"tokens": toks}, short, True,
+                         logits_slice="last")[0].float()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = ((card - cpu).abs().max() / cpu.abs().max()).item()
+    log(f"serve (d) card vs CPU (TF32 off for cudnn and matmul), depth 7 (6 "
+        f"Mamba2 + shared attention), L 512: max |logit card - cpu| / max "
+        f"|logit| = {err} (bar 1e-4; CPU "
+        f"forward {time.perf_counter() - t0:.1f}s)")
+    if not err <= 1e-4:
+        raise AssertionError("serve (d): card and CPU disagree")
+    return launches
+
+
 def main():
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -385,8 +840,10 @@ def main():
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import compress as CP
     from repro_torch.kernels import fedadc_update as FU
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import kd_loss as KD
     from repro_torch.kernels import sparse_reduce as SR
+    from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.kernels import weighted_reduce as WR
     from repro_torch.models.vision import cnn_init
 
@@ -497,6 +954,7 @@ def main():
             errs["kd_loss"] = max(errs["kd_loss"], e)
             errs["kd_loss_bwd"] = max(errs["kd_loss_bwd"], e_bwd)
     del s_, t_, y_, rho_, g_, got, want, ds, ds_plain
+    lm_kernel_checks(torch, FA, SSD, ref, gen, errs)
 
     cnn_sizes = [int(torch.Size(s).numel()) for s in cnn_shapes]
     timed = {}
@@ -543,6 +1001,7 @@ def main():
             if rows == KD_SHAPES[0][0] and n_classes == KD_SHAPES[0][1]:
                 timed[name] = rec
     del s_, t_, y_, rho_, g_, stats_
+    timed.update(lm_kernel_times(torch, FA, SSD, ref, gen))
 
     # -- 3. the main path: paper CNN at width 32 ----------------------------
     log(f"main: TF32 cudnn={torch.backends.cudnn.allow_tf32} "
@@ -563,7 +1022,8 @@ def main():
                 "server_update": 5 * n_leaves + n_leaves,
                 "weighted_reduce": 5 * n_leaves + 2 * n_leaves,
                 "threshold_select": 0, "qsgd": 0, "sparse_reduce": 0,
-                "kd_loss": 0, "kd_loss_bwd": 0}
+                "kd_loss": 0, "kd_loss_bwd": 0, "flash_attention": 0,
+                "ssd_scan": 0}
     ops.reset_launch_counts()
     sim = FederatedSimulator(fed, sim_cfg, x, y, xt, yt, parts)
     round_s = []
@@ -908,12 +1368,19 @@ def main():
             and counts["kd_loss"] == counts["kd_loss_bwd"] == want_kd):
         raise AssertionError("personalization: bad gains or KD launches")
 
+    # -- 9. serving Zamba2-1.2B at full width -------------------------------
+    t0 = time.perf_counter()
+    serve_launches = serve_phase(torch, np)
+    log(f"serve: {time.perf_counter() - t0:.1f}s")
+
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     # launches: the update kernels' from the main path (phase 3), the wire
-    # kernels' from the wire phase (4), the KD kernels' from FedADC+ (5)
+    # kernels' from the wire phase (4), the KD kernels' from FedADC+ (5),
+    # flash attention's and the SSD scan's from the serve phase (9)
     launches.update(wire_launches)
     launches.update({n: distill_launches[n] for n in ("kd_loss",
                                                       "kd_loss_bwd")})
+    launches.update(serve_launches)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": TPU_KERNEL[name], "launches": launches[name],

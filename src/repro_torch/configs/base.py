@@ -1,16 +1,209 @@
-"""The federated-learning configuration, a copy of the JAX package's
-``FedConfig`` (``configs/base.py:205-294``) with every field, so configs
-are built the same way for both packages.
+"""The port's configurations, copies of the JAX package's
+``configs/base.py``: the language models' ``ModelConfig`` with its block
+kinds and sub-configs (``:14-200``), the input shapes (``ShapeConfig``,
+``SHAPES``) and the federated-learning ``FedConfig`` (``:205-294``), with
+every field, so configs are built the same way for both packages.
 
-The port's first slice supports a subset of these fields;
+The simulator supports a subset of the ``FedConfig`` fields;
 ``repro_torch.federated.protocol.RoundProtocol`` raises
-``NotImplementedError`` on the rest.  ``use_pallas`` is kept for parity
-only: on a CUDA tensor the port always runs its kernels.
+``NotImplementedError`` on the rest.  ``FedConfig.use_pallas`` is kept for
+parity only: on a CUDA tensor the simulator always runs its kernels.  The
+LM stack supports the block kinds ``ATTN``, ``SHARED_ATTN`` and ``MAMBA2``
+(``repro_torch.models.transformer`` raises on the rest).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Block kinds used to assemble heterogeneous stacks (hybrid / ssm / enc-dec).
+# ---------------------------------------------------------------------------
+ATTN = "attn"          # self-attention transformer block
+MOE = "moe"            # transformer block with MoE FFN
+MAMBA2 = "mamba2"      # Mamba2 (SSD) block
+SLSTM = "slstm"        # xLSTM sLSTM block (scalar memory, sequential)
+MLSTM = "mlstm"        # xLSTM mLSTM block (matrix memory, parallel)
+SHARED_ATTN = "shared_attn"  # Zamba2-style globally shared attention block
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0            # routed experts
+    top_k: int = 1
+    n_shared_experts: int = 0     # always-on shared experts
+    d_ff_expert: int = 0          # per-expert hidden dim
+    router_aux_coef: float = 0.001  # load-balance auxiliary loss
+    first_k_dense: int = 0        # leading layers that stay dense (DeepSeek)
+    capacity_factor: float = 1.25  # per-expert token capacity (dropless if <=0)
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3 Multi-head Latent Attention."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / xLSTM recurrent block parameters."""
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    n_groups: int = 1
+    head_dim: int = 64
+    chunk_size: int = 256         # SSD chunk length (TPU matmul-friendly)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str = "unnamed"
+    family: str = "dense"         # dense | moe | ssm | hybrid | vlm | audio
+    source: str = ""              # citation for the config
+
+    n_layers: int = 2
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_ff: int = 1024
+    vocab_size: int = 32000
+    head_dim: int = 0             # 0 => d_model // n_heads
+    max_seq_len: int = 8192
+
+    # attention variants
+    qk_norm: bool = False         # Qwen3-style per-head RMSNorm on q,k
+    qkv_bias: bool = False        # Qwen1.5-style bias on qkv projections
+    rope_theta: float = 10000.0
+    sliding_window: int = 0       # 0 => full attention
+    # iRoPE-style interleave: every `global_attn_every`-th layer uses full
+    # attention, the rest use `sliding_window` (Llama-4 chunked attention).
+    global_attn_every: int = 0
+    mla: Optional[MLAConfig] = None
+
+    # MoE / SSM
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+
+    # stack layout.  If `block_pattern` is empty it defaults to n_layers of
+    # ATTN (or MOE for moe family).  For hybrids it lists one entry per layer.
+    block_pattern: Tuple[str, ...] = ()
+    shared_attn_every: int = 0    # Zamba2: shared block after every k blocks
+
+    # enc-dec (audio): encoder consumes stub frame embeddings.
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq_scale: int = 1    # encoder frames per decoder token budget
+
+    # vlm: prefix of precomputed patch embeddings (stub vision tower).
+    n_patch_tokens: int = 0
+
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    # which mesh axis the MoE dispatch buffers live on: "model" for the
+    # training regime (FSDP over data), "data" for the serving regime
+    # (expert-parallel over data, no param gathers) — §Perf iteration 6
+    moe_dispatch_axis: str = "model"
+
+    # --- derived ----------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        # explicit 0-sentinel comparison, not truthiness (truthiness-on-config)
+        return self.head_dim if self.head_dim > 0 \
+            else self.d_model // self.n_heads
+
+    def blocks(self) -> Tuple[str, ...]:
+        if self.block_pattern:
+            return self.block_pattern
+        if self.moe is not None:
+            pat = []
+            for i in range(self.n_layers):
+                pat.append(ATTN if i < self.moe.first_k_dense else MOE)
+            return tuple(pat)
+        return (ATTN,) * self.n_layers
+
+    def layer_uses_window(self, layer_idx: int) -> bool:
+        """True when this attention layer is sliding-window (sub-quadratic)."""
+        if self.sliding_window <= 0:
+            return False
+        if self.global_attn_every > 0:
+            return (layer_idx + 1) % self.global_attn_every != 0
+        return True
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode possible (SSM/hybrid, or windowed attention
+        on every layer that would otherwise be quadratic)."""
+        kinds = set(self.blocks())
+        attn_kinds = {ATTN, MOE, SHARED_ATTN}
+        if not (kinds & attn_kinds):
+            return True                           # pure SSM
+        if self.is_encoder_decoder:
+            return False
+        if MAMBA2 in kinds or MLSTM in kinds or SLSTM in kinds:
+            # hybrid: the SSM backbone carries long-range state; the few
+            # (shared) attention layers decode linearly against the cache
+            return True
+        if self.mla is not None:
+            return False                          # full-attention MLA cache
+        if self.sliding_window > 0:
+            # hybrids: the few attention layers are windowed; dense: every
+            # layer must be windowed unless interleaved global layers use
+            # attention-sink truncation (we do not), so require no globals
+            # or an SSM backbone carrying the long-range state.
+            if self.global_attn_every == 0:
+                return True
+            return MAMBA2 in kinds or MLSTM in kinds or self.family == "moe"
+        return False
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for roofline MODEL_FLOPS)."""
+        from repro_torch.models.registry import count_params  # lazy
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.registry import count_params
+        return count_params(self, active_only=True)
+
+    def reduced(self) -> "ModelConfig":
+        """A tiny same-family variant for CPU smoke tests."""
+        kw = dict(
+            n_layers=2, d_model=min(self.d_model, 256),
+            n_heads=min(self.n_heads, 4),
+            d_ff=min(self.d_ff, 512) if self.d_ff > 0 else 0,
+            vocab_size=min(self.vocab_size, 512),
+            max_seq_len=256,
+            head_dim=64 if self.head_dim > 0 else 0,
+        )
+        kw["n_kv_heads"] = min(self.n_kv_heads, kw["n_heads"])
+        if self.moe is not None:
+            kw["moe"] = replace(
+                self.moe, n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_ff_expert=min(self.moe.d_ff_expert, 256),
+                first_k_dense=min(self.moe.first_k_dense, 1))
+        if self.ssm is not None:
+            kw["ssm"] = replace(self.ssm, d_state=min(self.ssm.d_state, 16),
+                                head_dim=32, chunk_size=64)
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=48,
+                                  qk_nope_head_dim=32, qk_rope_head_dim=16,
+                                  v_head_dim=32)
+        if self.block_pattern:
+            kw["block_pattern"] = self.block_pattern[:2]
+        if self.is_encoder_decoder:
+            kw["n_encoder_layers"] = 2
+        if self.n_patch_tokens > 0:
+            kw["n_patch_tokens"] = 16
+        if self.sliding_window > 0:
+            kw["sliding_window"] = min(self.sliding_window, 128)
+        return replace(self, **kw)
+
+
 
 
 @dataclass(frozen=True)
@@ -63,3 +256,20 @@ class FedConfig:
     resync_horizon: int = 4
     # two-tier fleet topology: 0 = flat aggregation, R >= 1 = hierarchical
     fleet_regions: int = 0
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str = "train_4k"
+    seq_len: int = 4096
+    global_batch: int = 256
+    kind: str = "train"            # train | prefill | decode
+
+
+# The four assigned input shapes.
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}

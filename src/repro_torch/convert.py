@@ -3,14 +3,22 @@
 The JAX package keeps parameters as nested dicts of arrays; the port keeps
 the same key paths with tensors.  Layouts:
 
-* conv ``w``: HWIO in JAX (``lax.conv_general_dilated`` with NHWC/HWIO) and
-  OIHW here (``F.conv2d``) — every 4-d leaf named ``w`` is permuted;
+* the vision models' conv ``w``: HWIO in JAX (``lax.conv_general_dilated``
+  with NHWC/HWIO) and OIHW here (``F.conv2d``).  A leaf is such a weight
+  when it is 4-d, named ``w``, and its layer is one of the vision models'
+  convolutions (``c1``..``c4``, ``stem``, ``conv1``/``conv2``, ``proj``) or
+  a bare conv layer ``{"w", "b"}``; no LM leaf is ever permuted;
 * linear ``w``: ``(d_in, d_out)`` on both sides (``x @ w + b``), unchanged;
-* every other leaf (biases, GroupNorm scale/bias) is unchanged.
+* every other leaf is unchanged: biases and norms, and the LM trees as
+  they are — nested ``runs`` dicts whose leaves carry a leading layer axis,
+  the Mamba2 ``conv_w`` (d_conv, channels), ``A_log``, ``D``, ``dt_bias``
+  and the tied embedding.
 
 Both directions go through numpy, so neither package imports the other.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -18,8 +26,12 @@ import torch
 from repro_torch.core.tree import tree_map_with_path
 
 
+VISION_CONV = re.compile(r"c\d+|stem|conv\d+|proj")
+
+
 def _is_conv(path, a) -> bool:
-    return path[-1] == "w" and np.ndim(a) == 4
+    return (path[-1] == "w" and np.ndim(a) == 4
+            and (len(path) == 1 or VISION_CONV.fullmatch(path[-2]) is not None))
 
 
 def from_numpy(params, device, dtype=None):

@@ -21,7 +21,8 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = (CSRC / "fedadc_kernels.cu", CSRC / "compress_kernels.cu",
-           CSRC / "kd_kernels.cu")
+           CSRC / "kd_kernels.cu", CSRC / "attention_kernels.cu",
+           CSRC / "ssd_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -50,6 +51,14 @@ SIGNATURES = {
                                _I64, _F, _F, _INT, _P],
         "fedadc_kd_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                                _F, _F, _INT, _P],
+    },
+    SOURCES[3]: {
+        "fedadc_flash_attention": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                   _I64, _INT, _INT, _F, _INT, _P],
+    },
+    SOURCES[4]: {
+        "fedadc_ssd_scan": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                            _I64, _INT, _INT, _P],
     },
 }
 # the source of every entry point

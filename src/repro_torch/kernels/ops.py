@@ -1,5 +1,5 @@
-"""Per-leaf public wrappers around the port's kernels (the counterparts of
-the JAX package's ``kernels/ops.py:33-180`` and ``:202-204``).
+"""Public wrappers around the port's kernels (the counterparts of the JAX
+package's ``kernels/ops.py``).
 
 A CUDA tensor launches the Hopper kernel (or the kernel's wrapper raises);
 a CPU tensor takes the kernel's plain version from ``ref``.  The device of
@@ -13,9 +13,11 @@ import torch
 
 from repro_torch.kernels import compress as _cp
 from repro_torch.kernels import fedadc_update as _fu
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kd_loss as _kd
 from repro_torch.kernels import ref
 from repro_torch.kernels import sparse_reduce as _sr
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import weighted_reduce as _wr
 
 # the launching wrapper of every kernel, by the name the launch counts use
@@ -29,6 +31,8 @@ KERNELS = {
     "sparse_reduce": _sr.sparse_reduce,
     "kd_loss": _kd.kd_loss,
     "kd_loss_bwd": _kd.kd_loss_bwd,
+    "flash_attention": _fa.flash_attention,
+    "ssd_scan": _ssd.ssd_scan,
 }
 
 
@@ -143,3 +147,33 @@ def kd_loss(student_logits, teacher_logits, labels, rho, lam, tau):
     loss, ce, kl, _ = _kd.KDLoss.apply(student_logits, teacher_logits,
                                        labels, rho.reshape(1, -1), lam, tau)
     return loss, ce, kl
+
+
+# ---------------------------------------------------------------------------
+# attention and the SSD scan (the LM forward's ``use_pallas=True`` route)
+# ---------------------------------------------------------------------------
+def flash_attention(q, k, v, causal=True, window=0):
+    """q (B, L, H, D), k/v (B, L, Hk, D) in the model's layout -> (B, L, H,
+    D) in q's dtype."""
+    if q.device.type == "cpu":
+        out = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal, window)
+        return out.transpose(1, 2)
+    return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal, window)
+
+
+def ssd_scan(x, dt, A_log, B, C, D, chunk=256):
+    """The chunked SSD of a Mamba2 block: x (b, L, H, P), dt (b, L, H), B/C
+    (b, L, H, N), A_log and D (H,) -> y (b, L, H, P) fp32.  As in the
+    reference, the prologue (x·dt and the log decay) and the D skip stay
+    outside the kernel, and the kernel's output is rounded to x's dtype
+    before the fp32 D term is added (``ssd_scan.py:66-73, 91-93``)."""
+    chunk = min(chunk, x.shape[1])
+    xdt, a = ref.ssd_prologue(x, dt, A_log)
+    if x.device.type == "cpu":
+        y = ref.ssd_recurrence(xdt, a, B, C).to(x.dtype)
+    else:
+        y = _ssd.ssd_scan(xdt.contiguous(), a.contiguous(), B.contiguous(),
+                          C.contiguous(), chunk, x.dtype)
+    return y.float() + D.float()[None, None, :, None] * xdt

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels (the counterparts of the
-JAX package's ``kernels/ref.py:15-84`` and ``:140-159``).
+JAX package's ``kernels/ref.py``).
 
 Each repeats its CUDA kernel's arithmetic: fp32 whatever the storage type,
 every multiply and add rounded on its own, one rounding to the output type
@@ -7,9 +7,10 @@ on write, and the reduces summed client by client in order (QSGD instead
 rounds to its operand dtype after every operation, as the reference's jnp
 ops do; the threshold select only masks).  So on
 the same inputs a kernel and its plain version agree bit for bit.  The
-self-confidence KD loss is the exception: its kernels reduce each row in
-another order than ``torch.logsumexp`` and ``sum`` do, so the two agree
-within fp32 rounding, not bit for bit.  The CPU runs these; on the card they
+self-confidence KD loss, flash attention and the SSD scan are the
+exceptions: their kernels sum in another order (online softmax over key
+tiles; chunked instead of sequential), so each agrees with its plain
+version within fp32 rounding, not bit for bit.  The CPU runs these; on the card they
 are the yardstick the kernels are held to.
 """
 from __future__ import annotations
@@ -206,3 +207,66 @@ def kd_loss_bwd(student_logits, teacher_logits, labels, rho, stats, g, lam,
     ds = g.float()[:, None] * ((1 - lam) * (p - onehot)
                                + lam * tau * (target_sum * p_tau - tgt))
     return ds.to(student_logits.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (causal, GQA, optional sliding window)
+# ---------------------------------------------------------------------------
+def flash_attention(q, k, v, causal=True, window=0):
+    """q (B, H, L, D), k/v (B, Hk, L, D) -> (B, H, L, D) in q's dtype:
+    the masked softmax in fp32 over the whole (L, L) score matrix, as the
+    reference's oracle computes it (``ref.py:87-110``)."""
+    B, H, Lq, D = q.shape
+    g = H // k.shape[1]
+    qf = q.float() * (D ** -0.5)
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    qpos = torch.arange(Lq, device=q.device)[:, None]
+    kpos = torch.arange(Lq, device=q.device)[None, :]
+    mask = torch.ones((Lq, Lq), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, vf).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan (sequential recurrence)
+# ---------------------------------------------------------------------------
+def ssd_recurrence(xdt, a, B, C):
+    """The SSD kernel's plain version: xdt (b, L, H, P) fp32 (x·dt), a (b,
+    L, H) fp32 (the per-step log decay), B/C (b, L, H, N) -> y (b, L, H, P)
+    fp32 by the sequential recurrence h_t = e^{a_t}·h_{t−1} + B_tᵀ·x_t,
+    y_t = C_t·h_t, one position at a time, without the D term."""
+    b, L, H, P = xdt.shape
+    N = B.shape[-1]
+    Bf, Cf, decay = B.float(), C.float(), torch.exp(a.float())
+    h = torch.zeros((b, H, N, P), dtype=torch.float32, device=xdt.device)
+    ys = []
+    for t in range(L):
+        h = (h * decay[:, t, :, None, None]
+             + Bf[:, t, :, :, None] * xdt[:, t, :, None, :])
+        ys.append(torch.einsum("bhn,bhnp->bhp", Cf[:, t], h))
+    return torch.stack(ys, dim=1)
+
+
+def ssd_prologue(x, dt, A_log):
+    """The elementwise prologue the SSD kernel leaves to its caller:
+    -> (x·dt, −exp(A_log)·dt), both fp32."""
+    dtf = dt.float()
+    xdt = x.float() * dtf[..., None]
+    a = -torch.exp(A_log.float())[None, None] * dtf
+    return xdt, a
+
+
+def ssd_scan(x, dt, A_log, B, C, D, chunk=None):
+    """The reference's sequential oracle (``ref.py:113-137``): x (b, L, H,
+    P), dt (b, L, H), B/C (b, L, H, N), A_log and D (H,) -> y (b, L, H, P)
+    fp32, D skip included.  ``chunk`` is ignored."""
+    xdt, a = ssd_prologue(x, dt, A_log)
+    y = ssd_recurrence(xdt, a, B, C)
+    return y + D.float()[None, None, :, None] * xdt

@@ -1,1 +1,1 @@
-"""The paper's vision models and their layers."""
+"""The paper's vision models, the language-model stack and their layers."""

@@ -1,8 +1,44 @@
-"""Functional layers of the paper's vision models (counterparts of the JAX
-package's ``models/layers.py``).  Parameters are plain dicts of tensors."""
+"""Functional layers (counterparts of the JAX package's
+``models/layers.py``).  Parameters are plain dicts of tensors.
+
+The LM inits draw from a ``torch.Generator`` on the parameters' device
+with the reference's distributions: linears uniform ±1/√fan_in
+(``layers.py:13-17``), the embedding normal·0.02.  They cannot give
+``jax.random``'s numbers, so the parity tests convert the reference's own
+init instead (``repro_torch.convert``).  ``lead`` prepends stacking axes:
+a run of n identical blocks initialises each leaf once at (n, ...), where
+the reference vmaps its init over n keys.  On the ``meta`` device nothing
+is drawn, so shapes cost no memory (``registry.count_params``).
+"""
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
+
+
+def uniform(gen, shape, scale, dtype=torch.float32, device=None):
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.device.type != "meta":
+        t.uniform_(-scale, scale, generator=gen)
+    return t.to(dtype)
+
+
+def normal(gen, shape, std, dtype=torch.float32, device=None):
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.device.type != "meta":
+        t.normal_(0.0, std, generator=gen)
+    return t.to(dtype)
+
+
+def linear_init(gen, d_in, d_out, bias=False, dtype=torch.float32,
+                device=None, lead=()):
+    p = {"w": uniform(gen, (*lead, d_in, d_out), 1.0 / math.sqrt(max(d_in, 1)),
+                      dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=device)
+    return p
 
 
 def linear(p, x):
@@ -11,6 +47,25 @@ def linear(p, x):
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def embedding_init(gen, vocab, d_model, dtype=torch.float32, device=None):
+    return {"emb": normal(gen, (vocab, d_model), 0.02, dtype, device)}
+
+
+def embed(p, ids):
+    return p["emb"][ids]
+
+
+def rmsnorm_init(dim, dtype=torch.float32, device=None, lead=()):
+    return {"scale": torch.ones((*lead, dim), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * p["scale"].float()).to(dt)
 
 
 def groupnorm_init(dim, dtype=torch.float32, device=None):
@@ -37,3 +92,39 @@ def groupnorm(p, x, groups=32, eps=1e-5):
     bshape = (1, c) + (1,) * (x.dim() - 2)
     return (y * p["scale"].reshape(bshape)
             + p["bias"].reshape(bshape)).to(dt)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings (half-split, as the reference).
+# --------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor):
+    """positions (...,) -> cos, sin of shape (..., head_dim // 2), fp32."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=positions.device) / head_dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x (..., L, H, D); cos/sin broadcastable to (..., L, 1, D/2)."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    while cos.dim() < x1.dim():
+        cos, sin = cos[..., None, :], sin[..., None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# SwiGLU MLP.
+# --------------------------------------------------------------------------
+def mlp_init(gen, d_model, d_ff, dtype=torch.float32, device=None, lead=()):
+    return {"gate": linear_init(gen, d_model, d_ff, dtype=dtype,
+                                device=device, lead=lead),
+            "up": linear_init(gen, d_model, d_ff, dtype=dtype, device=device,
+                              lead=lead),
+            "down": linear_init(gen, d_ff, d_model, dtype=dtype,
+                                device=device, lead=lead)}
+
+
+def mlp(p, x):
+    return linear(p["down"], F.silu(linear(p["gate"], x)) * linear(p["up"], x))

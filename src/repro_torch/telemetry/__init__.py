@@ -6,13 +6,17 @@ Engines take ``telemetry=`` and default to ``Telemetry.disabled()``.  The
 disabled facade keeps what the engines return — the eval ``history`` — and
 the counter registry the transport accounts its bytes into, and the named
 histograms (the downlink's per-client payload sizes); its tracer's ``span``
-is a no-op.
+is a no-op, and so are the serving engine's ``record_request`` and
+``emit_summary``.  ``latency_summary`` (``telemetry/latency.py``) turns
+finished requests into the serving percentiles.
 """
 from __future__ import annotations
 
 import contextlib
 from collections import deque
 from typing import Dict
+
+from repro_torch.telemetry.latency import latency_summary, request_itl
 
 # the eval history is bounded like the reference's drift curve: a run that
 # evaluates more often than this keeps the most recent entries
@@ -91,5 +95,14 @@ class Telemetry:
         """One eval-history entry (this IS the engines' ``history``)."""
         self.history.append(entry)
 
+    def record_request(self, output, **extra) -> None:
+        """One finished serving request: the disabled facade records
+        nothing (the reference's counters and event come with the
+        telemetry slice)."""
 
-__all__ = ["Telemetry", "Tracer", "Counters", "Histogram"]
+    def emit_summary(self, outputs=None, **extra) -> None:
+        """The end-of-run serving summary: nothing to emit when disabled."""
+
+
+__all__ = ["Telemetry", "Tracer", "Counters", "Histogram", "latency_summary",
+           "request_itl"]

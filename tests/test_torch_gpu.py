@@ -289,3 +289,115 @@ def test_fedadc_plus_rounds_on_the_card_match_the_cpu():
          torch.backends.cuda.matmul.allow_tf32) = tf32
     assert counts["kd_loss"] == 2 and counts["kd_loss_bwd"] == 2
     assert update_rel_err(sims[0].params, sims[1].params, start) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(dtype):
+    """The flash kernel against its plain version at the reference sweep's
+    shapes (MHA, GQA 2, MQA at D 128, L 192 not a multiple of the tile),
+    its windows, and a GQA 32/8 at D 128 (Qwen3's heads): within the
+    reference's bars, 2e-5 (fp32) and 2e-2 (bf16); the kernel's online
+    softmax sums over 64-key tiles, the plain version over the row."""
+    need_card()
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator().manual_seed(5)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for B, H, Hk, L, D, window in ((1, 2, 2, 128, 64, 0),
+                                   (2, 4, 2, 256, 64, 0),
+                                   (1, 8, 1, 128, 128, 0),
+                                   (1, 4, 4, 192, 64, 0),
+                                   (1, 2, 2, 256, 64, 32),
+                                   (1, 2, 2, 256, 64, 64),
+                                   (1, 2, 2, 256, 64, 128),
+                                   (1, 32, 8, 300, 128, 0)):
+        q = torch.randn(B, L, H, D, generator=g).to("cuda", dtype)
+        k, v = (torch.randn(B, L, Hk, D, generator=g).to("cuda", dtype)
+                for _ in range(2))
+        got = FA.flash_attention(q, k, v, True, window)
+        want = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), True,
+                                   window).transpose(1, 2)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_matches_plain(dtype):
+    """The SSD kernel (through ``ops.ssd_scan``, prologue and D term
+    included) against the plain sequential recurrence at the reference
+    sweep's shapes and two ragged lengths: within 2e-5 (fp32) and 5e-2
+    (bf16) of the output's largest magnitude, the reference's bars."""
+    need_card()
+    g = torch.Generator().manual_seed(6)
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    for b, L, H, P, N, chunk in ((1, 64, 2, 16, 8, 16),
+                                 (2, 128, 4, 32, 16, 32),
+                                 (1, 256, 2, 64, 64, 64),
+                                 (2, 96, 3, 16, 8, 32),
+                                 (2, 100, 4, 32, 16, 64),
+                                 (1, 300, 4, 64, 64, 256)):
+        x = torch.randn(b, L, H, P, generator=g).to("cuda", dtype)
+        dt = torch.nn.functional.softplus(torch.randn(b, L, H, generator=g)
+                                          ).cuda()
+        A_log = torch.log(torch.arange(1, H + 1, dtype=torch.float32)).cuda()
+        Bm, Cm = (torch.randn(b, L, H, N, generator=g).to("cuda", dtype)
+                  for _ in range(2))
+        D = torch.ones(H, device="cuda")
+        ops.reset_launch_counts()
+        got = ops.ssd_scan(x, dt, A_log, Bm, Cm, D, chunk)
+        assert ops.launch_counts()["ssd_scan"] == 1
+        want = ref.ssd_scan(x, dt, A_log, Bm, Cm, D)
+        err = (got - want).abs().max() / want.abs().max()
+        assert err <= tol
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_engine_on_the_card_matches_the_cpu():
+    """A reduced hybrid (Mamba2 and shared attention) served on the card
+    and on the CPU from the same parameters: the prefill step's kernel
+    route launches one SSD scan per Mamba2 block and one flash attention
+    per shared-attention block, and both engines give the same greedy
+    tokens (TF32 off)."""
+    need_card()
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import MAMBA2, SHARED_ATTN
+    from repro_torch.launch.serve import make_prefill_step
+    from repro_torch.models import transformer as LM
+    from repro_torch.serving import SchedulerConfig, ServingEngine
+    cfg = replace(get_arch("zamba2-1.2b").reduced(),
+                  block_pattern=(MAMBA2, MAMBA2, SHARED_ATTN, MAMBA2,
+                                 SHARED_ATTN))
+    params = LM.init(0, cfg, device="cpu")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = T.tree_map(lambda t: t.cuda(), params)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 96),
+                               generator=torch.Generator().manual_seed(7))
+        ops.reset_launch_counts()
+        first = make_prefill_step(cfg, True)(card, {"tokens": tokens.cuda()})
+        counts = ops.launch_counts()
+        assert counts["ssd_scan"] == 3 and counts["flash_attention"] == 2
+        assert torch.equal(first.cpu(), make_prefill_step(cfg, True)(
+            params, {"tokens": tokens}))
+        outs = []
+        for device, p in (("cuda", card), ("cpu", params)):
+            eng = ServingEngine(cfg, p, SchedulerConfig(
+                n_slots=2, max_len=64, prefill_chunk=8, page_size=16),
+                device=device)
+            for i in range(3):
+                eng.add_request(tokens[i % 2, :10 + 5 * i].tolist(), 6)
+            outs.append([o.tokens for o in eng.run()])
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    assert outs[0] == outs[1]

@@ -176,11 +176,16 @@ def test_cpu_runs_plain_versions_and_counts_no_launch():
     logits = rows.clone().requires_grad_()
     ops.kd_loss(logits, rows, labels, torch.ones(100), 0.35, 1.0)[0].sum(
         ).backward()
+    q = torch.randn(1, 8, 2, 64)
+    ops.flash_attention(q, q, q)
+    ops.ssd_scan(q, torch.rand(1, 8, 2), torch.zeros(2), q, q, torch.ones(2),
+                 4)
     assert ops.launch_counts() == {"fused_axpy": 0, "local_update": 0,
                                    "server_update": 0, "weighted_reduce": 0,
                                    "threshold_select": 0, "qsgd": 0,
                                    "sparse_reduce": 0, "kd_loss": 0,
-                                   "kd_loss_bwd": 0}
+                                   "kd_loss_bwd": 0, "flash_attention": 0,
+                                   "ssd_scan": 0}
     with pytest.raises(ValueError, match="CUDA"):
         FU.fused_axpy(x, x, 0.5)
     with pytest.raises(ValueError, match="CUDA"):

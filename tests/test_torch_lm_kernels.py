@@ -1,0 +1,183 @@
+"""The port's flash attention and SSD scan on the CPU, held against the JAX
+package.
+
+On the CPU the port's wrappers (``repro_torch.kernels.ops``) run the
+kernels' plain versions (``repro_torch.kernels.ref``); each is compared on
+the same numpy inputs with the reference's oracle (``repro.kernels.ref``)
+and with its Pallas kernel in interpret mode.  Bars, from
+``tests/test_kernels.py``:
+
+* flash attention: 2e-5 (fp32) and 2e-2 (bf16) absolute and relative —
+  the Pallas kernel sums its online softmax over 64-key blocks, the oracles
+  over the whole row;
+* the SSD scan: 2e-5 (fp32) and 5e-2 (bf16) of the output's largest
+  magnitude — the sequential recurrence against the chunked kernel; the
+  two sequential oracles against each other at 1e-6 (fp32, the same
+  arithmetic in another library).
+
+The CUDA kernels need the card: ``tests/test_torch_gpu.py`` holds them
+against these plain versions there and skips here.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as JFA
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels import ssd_scan as JSSD
+from repro.models import mamba2 as jM2
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as SSD
+from repro_torch.models import mamba2 as M2
+
+DT = {"float32": (torch.float32, jnp.float32),
+      "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def operand(rng, shape, dtype):
+    """One numpy-made operand as (torch, jax), representable in dtype."""
+    t = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        DT[dtype][0])
+    return t, jnp.asarray(t.float().numpy(), DT[dtype][1])
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+FLASH_SHAPES = [(1, 2, 2, 128, 64),     # MHA
+                (2, 4, 2, 256, 64),     # GQA group 2
+                (1, 8, 1, 128, 128),    # MQA
+                (1, 4, 4, 192, 64)]     # L not a multiple of the block
+
+
+@pytest.mark.parametrize("B,H,Hk,L,D", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_reference(B, H, Hk, L, D, dtype):
+    rng = np.random.RandomState(L + H)
+    (q, jq), (k, jk), (v, jv) = (operand(rng, s, dtype) for s in (
+        (B, H, L, D), (B, Hk, L, D), (B, Hk, L, D)))
+    got = ref.flash_attention(q, k, v, causal=True)
+    assert got.dtype == DT[dtype][0]
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for want in (jref.flash_attention(jq, jk, jv, causal=True),
+                 JFA.flash_attention(jq, jk, jv, causal=True, block_q=64,
+                                     block_k=64, interpret=True)):
+        np.testing.assert_allclose(f32(got), f32(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [32, 64, 128])
+def test_flash_plain_window_matches_reference(window):
+    rng = np.random.RandomState(window)
+    (q, jq), (k, jk), (v, jv) = (operand(rng, (1, 2, 256, 64), "float32")
+                                 for _ in range(3))
+    got = ref.flash_attention(q, k, v, causal=True, window=window)
+    for want in (jref.flash_attention(jq, jk, jv, causal=True, window=window),
+                 JFA.flash_attention(jq, jk, jv, causal=True, window=window,
+                                     block_q=64, block_k=64, interpret=True)):
+        np.testing.assert_allclose(f32(got), f32(want), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_ops_keeps_the_model_layout():
+    """ops.flash_attention takes and gives (B, L, H, D), as the reference's
+    ops wrapper does, and equals its Pallas route."""
+    rng = np.random.RandomState(2)
+    (q, jq), (k, jk), (v, jv) = (operand(rng, s, "float32") for s in (
+        (2, 128, 4, 64), (2, 128, 2, 64), (2, 128, 2, 64)))
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert tuple(got.shape) == (2, 128, 4, 64)
+    np.testing.assert_allclose(f32(got), f32(jops.flash_attention(jq, jk, jv)),
+                               atol=3e-5, rtol=3e-5)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+SSD_SHAPES = [(1, 64, 2, 16, 8, 16),
+              (2, 128, 4, 32, 16, 32),
+              (1, 256, 2, 64, 64, 64),     # zamba2's state size
+              (2, 96, 3, 16, 8, 32)]       # L not a multiple of 2 chunks
+
+
+def ssd_operands(seed, b, L, H, P, N, dtype):
+    rng = np.random.RandomState(seed)
+    x, jx = operand(rng, (b, L, H, P), dtype)
+    dt_np = np.log1p(np.exp(rng.randn(b, L, H))).astype(np.float32)
+    dt, jdt = torch.from_numpy(dt_np), jnp.asarray(dt_np)
+    A_log = torch.log(torch.arange(1, H + 1, dtype=torch.float32))
+    B, jB = operand(rng, (b, L, H, N), dtype)
+    C, jC = operand(rng, (b, L, H, N), dtype)
+    D = torch.ones(H)
+    j = (jx, jdt, jnp.asarray(A_log.numpy()), jB, jC, jnp.ones((H,)))
+    return (x, dt, A_log, B, C, D), j
+
+
+def assert_rel(got, want, tol):
+    want = f32(want)
+    scale = np.abs(want).max() + 1e-6
+    np.testing.assert_allclose(f32(got) / scale, want / scale, atol=tol,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("b,L,H,P,N,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_plain_matches_reference(b, L, H, P, N, chunk, dtype):
+    args, jargs = ssd_operands(L + P, b, L, H, P, N, dtype)
+    tol = 5e-2 if dtype == "bfloat16" else 2e-5
+    seq = ref.ssd_scan(*args)
+    assert_rel(seq, jref.ssd_scan(*jargs), 1e-6)
+    pallas = JSSD.ssd_scan(*jargs, chunk=chunk, interpret=True)
+    assert_rel(seq, pallas, tol)
+    # the kernel route: the output rounded to x's dtype before the D term
+    got = ops.ssd_scan(*args, chunk=chunk)
+    assert got.dtype == torch.float32
+    assert_rel(got, pallas, tol)
+
+
+@pytest.mark.parametrize("L,chunk", [(100, 32), (300, 256)])
+def test_ssd_ragged_length(L, chunk):
+    """A length that is not a multiple of the chunk, against the
+    reference's sequential oracle.  (The Pallas kernel's cdiv grid reads
+    past L in the last chunk; in interpret mode those reads are NaN, which
+    reach the valid rows through the causally masked product, 0·NaN, so
+    it is no yardstick here.)"""
+    args, jargs = ssd_operands(L, 1, L, 2, 32, 16, "float32")
+    assert_rel(ops.ssd_scan(*args, chunk=chunk), jref.ssd_scan(*jargs), 2e-5)
+
+
+def test_ssd_chunked_matches_reference():
+    """The model's einsum route (``use_pallas=False``) against the
+    reference's (2e-5 of the largest magnitude: XLA contracts the
+    three-operand einsums in another order), and against the kernel route
+    (same math, the reference's bar for it)."""
+    args, jargs = ssd_operands(4, 2, 128, 4, 32, 16, "float32")
+    got = M2.ssd_chunked(*args, chunk=32)
+    assert_rel(got, jM2.ssd_chunked(*jargs, chunk=32), 2e-5)
+    np.testing.assert_allclose(f32(got), f32(ops.ssd_scan(*args, chunk=32)),
+                               atol=3e-4, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers on the CPU
+# ---------------------------------------------------------------------------
+def test_cpu_route_counts_no_launch_and_kernels_refuse_cpu_tensors():
+    ops.reset_launch_counts()
+    args, _ = ssd_operands(0, 1, 64, 2, 16, 8, "float32")
+    ops.ssd_scan(*args, chunk=16)
+    q = torch.randn(1, 64, 2, 64)
+    ops.flash_attention(q, q, q)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 0 and counts["ssd_scan"] == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention(q, q, q)
+    xdt, a = ref.ssd_prologue(*args[:3])
+    with pytest.raises(ValueError, match="CUDA"):
+        SSD.ssd_scan(xdt, a, args[3], args[4], 16, torch.float32)
