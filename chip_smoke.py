@@ -12,9 +12,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               plain PyTorch version on the card, bit for bit in fp32 and
               bf16, at the main path's leaf shapes (the paper CNN at width
               32, its 16 leaves stacked over K=8 clients) and at
-              ResNet-18's largest leaf stacked over K=8; the weighted and
-              the sparse reduce also at K=96 bf16 against an fp64 oracle
-              (1 bf16 ulp), the sparse reduce also on duplicate indices;
+              ResNet-18's largest leaf stacked over K=8; the two sweep
+              kernels (fused_axpy, one launch per 64 leaves, and the
+              sparse reduce, one call of four kernels per aggregate) also
+              over ResNet-18's 76 leaves (two leaf-table groups), over
+              edge sweeps (an empty leaf, lengths off the tile, a leaf not
+              16-byte aligned, k = 0, out-of-range indices) and, for the
+              reduce, duplicate indices within and across clients; the
+              weighted and the sparse reduce also at K=96 bf16 against an
+              fp64 oracle (1 bf16 ulp);
               the KD forward and backward kernels in fp32 and bf16 at the
               FedADC+ CNN's (512, 10) (K=8 clients x batch 64 folded, 8
               groups of rho), ResNet-18's (512, 100), the reference sweep's
@@ -28,7 +34,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               zamba2-1.2b's prefill (b 4, L 2048, H 64, P 64, N 64, chunk
               256), within 2e-5 / 5e-2 of max |y|; then time each kernel, its
               plain version and, where one PyTorch call computes the same
-              function, that call (flash: scaled_dot_product_attention),
+              function, that call (flash: scaled_dot_product_attention;
+              fused_axpy: torch._foreach_add, the per-leaf torch.add sweep
+              logged beside it; the sparse reduce: index_add_ per leaf),
               and both LM kernels at the prefill_32k length (L 32768);
 3. main     — the paper CNN at width 32 on 32x32x3 images at CIFAR-10
               cardinality (50000/10000), sort-and-partition s=2 over 100
@@ -126,6 +134,8 @@ SOURCE = {name: (WIRE_SOURCE if name in ("threshold_select", "qsgd",
           for name in TPU_KERNEL}
 SOURCE["flash_attention"] = "src/repro_torch/csrc/attention_kernels.cu"
 SOURCE["ssd_scan"] = "src/repro_torch/csrc/ssd_kernels.cu"
+# the kernels that take a whole sweep in one call (leaf tables)
+SWEEP_KERNELS = ("fused_axpy", "sparse_reduce")
 K = 8
 ETA = 0.01
 TOPK_FRAC = 0.1
@@ -162,6 +172,22 @@ def cuda_ms(torch, fn, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms_by_kernel(torch, fn, iters=20):
+    """{kernel name: device ms a call} of fn, from the profiler over
+    `iters` calls: what the card spends, whatever the host adds."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:48]: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
 # the KD kernels' check shapes: (rows, classes, groups of rho)
 KD_SHAPES = [(512, 10, 8), (512, 100, 8), (31, 257, 1), (64, 37, 1),
              (1024, 32768, 1)]
@@ -169,6 +195,27 @@ KD_LAM, KD_TAU = 0.35, 1.0
 # the Table I baselines of phase 5, and the benchmark's eta for them
 BASELINES = ("moon", "fedgkd", "fedntd", "fedrs")
 TABLE1_ETA = 0.05
+
+
+def cdiv(a, b):
+    return -(-a // b)
+
+
+def table_groups(n_leaves):
+    """Leaf-table groups a sweep of n_leaves takes: one launch each."""
+    return cdiv(n_leaves, 64)
+
+
+def time_library(torch, lib, **kw):
+    """(the row's library ms, {label: ms}) for a yardstick: None, one call,
+    or a dict of labelled calls whose first is the row's."""
+    if lib is None:
+        return None, {}
+    if not isinstance(lib, dict):
+        ms = cuda_ms(torch, lib, **kw)
+        return ms, {}
+    times = {label: cuda_ms(torch, fn, **kw) for label, fn in lib.items()}
+    return next(iter(times.values())), times
 
 
 def topk_k(n):
@@ -245,9 +292,11 @@ def sweeps(torch, FU, WR, ref, shapes, dtype, gen):
     a, eta, gamma, ae = -0.05, 0.05, 0.2, 0.05
     return {
         "fused_axpy": (
-            lambda: [FU.fused_axpy(x, y, a) for x, y in zip(xs, ys)],
+            lambda: FU.fused_axpy_leaves(xs, ys, a),
             lambda: [ref.fused_axpy(x, y, a) for x, y in zip(xs, ys)],
-            lambda: [torch.add(x, y, alpha=a) for x, y in zip(xs, ys)]),
+            {"_foreach_add": lambda: torch._foreach_add(xs, ys, alpha=a),
+             "torch.add per leaf": lambda: [torch.add(x, y, alpha=a)
+                                            for x, y in zip(xs, ys)]}),
         "local_update": (
             lambda: [FU.local_update(x, y, z, eta)
                      for x, y, z in zip(xs, ys, zs)],
@@ -284,6 +333,8 @@ def wire_sweeps(torch, CP, SR, ref, shapes, dtype, gen):
         idx = torch.topk(flat.abs(), topk_k(flat.shape[1]), dim=1).indices
         wires.append((torch.gather(flat, 1, idx).contiguous(),
                       idx.to(torch.int32).contiguous(), tuple(v.shape[1:])))
+    wire_lists = ([v for v, _, _ in wires], [i for _, i, _ in wires])
+    shape_list = [s for _, _, s in wires]
     w = torch.rand(K, generator=gen).to(dev)
     zero = torch.zeros((), device=dev, dtype=dtype)
     # the library yardstick of the reduce: index_add_ of the premultiplied
@@ -306,8 +357,8 @@ def wire_sweeps(torch, CP, SR, ref, shapes, dtype, gen):
                      for v, u, sc in zip(vs, us, scales)],
             None),
         "sparse_reduce": (
-            lambda: [SR.sparse_reduce(vals, idx, w, shape, dtype)
-                     for vals, idx, shape in wires],
+            lambda: SR.sparse_reduce_leaves(*wire_lists, w, shape_list,
+                                            dtype),
             lambda: [ref.sparse_weighted_delta_reduce(vals, idx, w, shape,
                                                       dtype)
                      for vals, idx, shape in wires],
@@ -349,8 +400,11 @@ def profile_round(torch, sim, round_s, tag, top=12):
 
 
 def expected_wire_launches(tag, rounds, n_leaves, h_steps):
-    """The launches `rounds` nesterov FedADC rounds make on wire `tag`."""
-    per_round = {"fused_axpy": 2 * h_steps * n_leaves, "local_update": 0,
+    """The launches `rounds` nesterov FedADC rounds make on wire `tag`:
+    the axpy one launch a sweep (per 64 leaves), the sparse reduce one call
+    an aggregate, the other kernels one launch a leaf."""
+    per_round = {"fused_axpy": 2 * h_steps * table_groups(n_leaves),
+                 "local_update": 0,
                  # every wire but (b) aggregates dense
                  "server_update": n_leaves,
                  "weighted_reduce": 0 if tag == "b_topk_sparse" else n_leaves,
@@ -358,7 +412,7 @@ def expected_wire_launches(tag, rounds, n_leaves, h_steps):
                  # QSGD on the uplink and on the θ delta of the downlink
                  # (FedADC's ctx is derived from it, not sent)
                  "qsgd": 2 * n_leaves if tag == "c_qsgd_delta_qsgd" else 0,
-                 "sparse_reduce": n_leaves if tag == "b_topk_sparse" else 0,
+                 "sparse_reduce": 1 if tag == "b_topk_sparse" else 0,
                  "kd_loss": 0, "kd_loss_bwd": 0, "flash_attention": 0,
                  "ssd_scan": 0}
     return {name: rounds * n for name, n in per_round.items()}
@@ -388,11 +442,91 @@ def expected_downlink_bytes(fed, transport, picks_per_round):
 
 
 def max_err(got, want):
-    flat = []
+    """The largest |got - want| over lists of tensors (or of tuples of
+    them), which must agree in length, shape and dtype; 0 for empty ones."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} results where {len(want)} are due")
+    flat = [0.0]
     for g, p in zip(got, want):
         pairs = zip(g, p) if isinstance(g, tuple) else [(g, p)]
-        flat += [(a.float() - b.float()).abs().max().item() for a, b in pairs]
+        for a, b in pairs:
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{a.dtype} {tuple(a.shape)} where "
+                                     f"{b.dtype} {tuple(b.shape)} is due")
+            if a.numel():
+                flat.append((a.float() - b.float()).abs().max().item())
     return max(flat)
+
+
+def sweep_kernel_checks(torch, FU, SR, ref, gen, resnet_shapes, errs):
+    """The two leaf-table kernels against their plain versions on the card,
+    bit for bit, in fp32 and bf16: over ResNet-18's 76 leaves stacked over
+    K (two table groups) and over edge sweeps — an empty leaf, lengths off
+    the axpy's 2048 and the reduce's 8192-element tiles, a leaf whose
+    pointers are not 16-byte aligned (the scalar path), k = 0, out-of-range
+    indices, duplicate indices within and across clients."""
+    dev = "cuda"
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+    r_stacked = [(K,) + tuple(sh) for sh in resnet_shapes]
+    edge = [(K, 0), (K, 1), (K, 3, 5, 7), (K, 2047), (K, 2049), (K, 4097)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, shapes in (("resnet18", r_stacked), ("edge", edge)):
+            xs = [rnd(sh, dtype) for sh in shapes]
+            ys = [rnd(sh, dtype) for sh in shapes]
+            if tag == "edge":   # views one element past an aligned start
+                xs.append(rnd(K * 2049 + 1, dtype)[1:].view(K, 2049))
+                ys.append(rnd(K * 2049 + 1, dtype)[1:].view(K, 2049))
+            e = max_err(FU.fused_axpy_leaves(xs, ys, -0.05),
+                        [ref.fused_axpy(x, y, -0.05) for x, y in zip(xs, ys)])
+            torch.cuda.synchronize()
+            log(f"check fused_axpy {dtype} sweep {tag} ({len(xs)} leaves): "
+                f"max |kernel - plain| = {e}")
+            if e != 0.0:
+                raise AssertionError(f"fused_axpy {dtype} {tag} sweep "
+                                     f"differs from its plain version")
+            errs["fused_axpy"] = max(errs["fused_axpy"], e)
+            del xs, ys
+    # (n, k, index draw): unique top-k-like, or random with duplicates and
+    # out-of-range indices
+    r_wire = [(math.prod(sh), topk_k(math.prod(sh)), "unique")
+              for sh in resnet_shapes]
+    edge_wire = [(0, 0, "unique"), (5000, 0, "unique"), (1, 1, "unique"),
+                 (8193, 820, "unique"), (100_003, 10_001, "unique"),
+                 (997, 4096, "dups"), (3000, 400, "out-of-range"),
+                 (20_000, 9000, "dups")]
+    w = torch.rand(K, generator=gen).to(dev)
+    for vdt, odt in ((torch.float32, torch.float32),
+                     (torch.bfloat16, torch.bfloat16),
+                     (torch.bfloat16, torch.float32)):
+        for tag, spec in (("resnet18", r_wire), ("edge", edge_wire)):
+            vals, idxs = [], []
+            for n, k, draw in spec:
+                vals.append(rnd((K, k), vdt))
+                if draw == "unique":
+                    idx = torch.stack([torch.randperm(n, generator=gen)[:k]
+                                       for _ in range(K)]) if k else \
+                        torch.zeros((K, 0), dtype=torch.int64)
+                elif draw == "dups":
+                    idx = torch.randint(0, n, (K, k), generator=gen)
+                else:
+                    idx = torch.randint(-50, n + 50, (K, k), generator=gen)
+                    idx[0, :2] = torch.tensor([-2 ** 31, 2 ** 31 - 1])
+                idxs.append(idx.to(dev, torch.int32))
+            shapes = [(n,) for n, _, _ in spec]
+            got = SR.sparse_reduce_leaves(vals, idxs, w, shapes, odt)
+            want = [ref.sparse_weighted_delta_reduce(v, i, w, sh, odt)
+                    for v, i, sh in zip(vals, idxs, shapes)]
+            e = max_err(got, want)
+            torch.cuda.synchronize()
+            log(f"check sparse_reduce {vdt}->{odt} sweep {tag} "
+                f"({len(spec)} leaves, {sum(K * k for _, k, _ in spec)} "
+                f"pairs): max |kernel - plain| = {e}")
+            if e != 0.0:
+                raise AssertionError(f"sparse_reduce {vdt}->{odt} {tag} "
+                                     f"sweep differs from its plain version")
+            errs["sparse_reduce"] = max(errs["sparse_reduce"], e)
 
 
 def leaf_shapes(params):
@@ -845,7 +979,7 @@ def main():
     from repro_torch.kernels import sparse_reduce as SR
     from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.kernels import weighted_reduce as WR
-    from repro_torch.models.vision import cnn_init
+    from repro_torch.models.vision import cnn_init, resnet18_init
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -865,6 +999,8 @@ def main():
     cnn_shapes = leaf_shapes(cnn_init(0, width=32, image_size=32,
                                       device="cpu"))
     resnet_leaf = [(512, 512, 3, 3)]
+    resnet_shapes = leaf_shapes(resnet18_init(0, n_classes=100,
+                                              device="cpu"))
     errs = {name: 0.0 for name in ops.KERNELS}
 
     def all_sweeps(shapes, dtype):
@@ -926,6 +1062,7 @@ def main():
             raise AssertionError("sparse_reduce differs from its plain "
                                  "version on duplicate indices")
     del vals, idx, oracle, got
+    sweep_kernel_checks(torch, FU, SR, ref, gen, resnet_shapes, errs)
     # the KD kernels: forward within the reference's bar, backward within
     # 1e-5 of the gradient's largest magnitude (each row is reduced in
     # another order than the plain version's, so not bit for bit)
@@ -961,20 +1098,33 @@ def main():
     for name, (kern, plain, lib) in all_sweeps(cnn_shapes,
                                                torch.float32).items():
         b_ms, b_by = bound(name, cnn_sizes)
+        lib_ms, yardsticks = time_library(torch, lib)
         timed[name] = {"ms": cuda_ms(torch, kern),
                        "plain_ms": cuda_ms(torch, plain),
-                       "library_ms": cuda_ms(torch, lib) if lib else None,
+                       "library_ms": lib_ms,
                        "bound_ms": b_ms, "bound_by": b_by}
         log(f"time {name} over the CNN's {len(cnn_sizes)} leaves (fp32"
             f"{', K=8' if name != 'server_update' else ''}): "
-            f"{json.dumps(timed[name])}")
+            f"{json.dumps(timed[name])}"
+            + (f"; yardsticks {json.dumps(yardsticks)}" if yardsticks
+               else ""))
+        if name in SWEEP_KERNELS:
+            lib_fn = next(iter(lib.values())) if isinstance(lib, dict) else lib
+            log(f"time {name} over the CNN's leaves, device ms by kernel: "
+                f"{json.dumps(device_ms_by_kernel(torch, kern))}; the "
+                f"library's: {json.dumps(device_ms_by_kernel(torch, lib_fn))}")
     for name, (kern, plain, lib) in all_sweeps(resnet_leaf,
                                                torch.float32).items():
         b_ms, b_by = bound(name, [2359296])
+        lib_ms, yardsticks = time_library(torch, lib)
         log(f"time {name} on ResNet-18's largest leaf (2359296): "
             f"ms={cuda_ms(torch, kern)} plain_ms={cuda_ms(torch, plain)} "
-            f"library_ms={cuda_ms(torch, lib) if lib else None} "
-            f"bound_ms={b_ms} ({b_by})")
+            f"library_ms={lib_ms} bound_ms={b_ms} ({b_by})"
+            + (f"; yardsticks {json.dumps(yardsticks)}" if yardsticks
+               else ""))
+        if name in SWEEP_KERNELS:
+            log(f"time {name} on ResNet-18's largest leaf, device ms by "
+                f"kernel: {json.dumps(device_ms_by_kernel(torch, kern))}")
     # the KD kernels at the FedADC+ CNN's folded (512, 10) (the line's
     # numbers) and an LM vocabulary's (1024, 32768); no single PyTorch call
     # computes this loss, so there is no library time
@@ -1017,7 +1167,8 @@ def main():
     fed = FedConfig(eta=ETA)
     n_leaves = len(cnn_shapes)
     H = fed.local_steps
-    expected = {"fused_axpy": 5 * 2 * H * n_leaves + H * n_leaves,
+    groups = table_groups(n_leaves)
+    expected = {"fused_axpy": 5 * 2 * H * groups + H * groups,
                 "local_update": H * n_leaves,
                 "server_update": 5 * n_leaves + n_leaves,
                 "weighted_reduce": 5 * n_leaves + 2 * n_leaves,
@@ -1293,11 +1444,22 @@ def main():
     for name, (kern, plain, lib) in sweeps(torch, FU, WR, ref, rshapes,
                                            torch.float32, gen).items():
         b_ms, b_by = bound(name, rsizes)
+        lib_ms, yardsticks = time_library(torch, lib, iters=10)
         log(f"time {name} over ResNet-18's {len(rshapes)} leaves: "
             f"ms={cuda_ms(torch, kern, iters=10)} "
             f"plain_ms={cuda_ms(torch, plain, iters=3, warmup=1)} "
-            f"library_ms={cuda_ms(torch, lib, iters=10) if lib else None} "
-            f"bound_ms={b_ms} ({b_by})")
+            f"library_ms={lib_ms} bound_ms={b_ms} ({b_by})"
+            + (f"; yardsticks {json.dumps(yardsticks)}" if yardsticks
+               else ""))
+    # the sparse reduce over all 76 leaves (one call, two table groups)
+    # beside the per-leaf index_add_ sweep; the plain version is not timed
+    kern, _, lib = wire_sweeps(torch, CP, SR, ref, rshapes, torch.float32,
+                               gen)["sparse_reduce"]
+    b_ms, b_by = bound("sparse_reduce", rsizes)
+    log(f"time sparse_reduce over ResNet-18's {len(rshapes)} leaves: "
+        f"ms={cuda_ms(torch, kern, iters=10)} "
+        f"library_ms={cuda_ms(torch, lib, iters=10)} bound_ms={b_ms} "
+        f"({b_by})")
 
     # ResNet-18 on the sparse top-k wire and on QSGD with the delta+QSGD
     # downlink: one round each after a first one that pays for start-up

@@ -15,17 +15,19 @@ Local steps work on client-stacked trees: every leaf of ``theta``, the
 gradient, ``extra`` and ``ctx`` carries the round's K clients on a leading
 axis (the simulator expands the broadcast ctx to that shape), where the
 reference vmaps one client's step.  On CUDA tensors the updates run the
-port's Hopper kernels, launched once per leaf on the stacked tensor:
+port's Hopper kernels, launched on the stacked tensors:
 
 * ``_sgd_step`` and the nesterov half-step θ − η·m̄ go through
-  ``fused_axpy`` with a = −η (x + (−η)·y equals x − η·y bit for bit when
-  the multiply and the add are rounded on their own);
-* the heavy-ball step goes through ``fedadc_local_update``, with clip and
+  ``fused_axpy_tree`` with a = −η, one launch for every leaf of the tree
+  (x + (−η)·y equals x − η·y bit for bit when the multiply and the add are
+  rounded on their own);
+* the other update kernels launch once per leaf:
+  the heavy-ball step goes through ``fedadc_local_update``, with clip and
   weight decay applied to g before the call;
-* the FedADC and SlowMo server steps go through ``fedadc_server_update``
+  the FedADC and SlowMo server steps go through ``fedadc_server_update``
   with Δ̄ = mean_delta/η in fp32, m kept in fp32 and θ cast to the
-  parameter dtype on write;
-* the server aggregate goes through ``weighted_delta_reduce``.
+  parameter dtype on write, and the server aggregate goes through
+  ``weighted_delta_reduce``.
 
 The rest of the tree algebra is plain torch, as the reference leaves it to
 XLA.
@@ -55,7 +57,7 @@ def _wd(theta, g, fed: FedConfig):
 
 def _sgd_step(theta, g, eta, fed):
     g = _wd(theta, _maybe_clip(g, fed), fed)
-    return T.tree_map(lambda t, gi: ops.fused_axpy(t, gi, -eta), theta, g)
+    return ops.fused_axpy_tree(theta, g, -eta)
 
 
 # ---------------------------------------------------------------------------
@@ -162,8 +164,7 @@ class FedADC(FedAvg):
         m_bar = ctx["m_bar"]
         if fed.variant == "nesterov":
             # red: θ^{τ-1/2} = θ − η·m̄ ; g at θ^{τ-1/2}; θ = θ^{τ-1/2} − η·g
-            theta_half = T.tree_map(
-                lambda t, m: ops.fused_axpy(t, m, -fed.eta), theta, m_bar)
+            theta_half = ops.fused_axpy_tree(theta, m_bar, -fed.eta)
             g, aux = grad_fn(theta_half, batch)
             theta_new = _sgd_step(theta_half, g, fed.eta, fed)
         else:

@@ -10,8 +10,9 @@
 //                            q = sign(v)*level*scale_row/s ; r = v - q
 //       replaces compress.py:qsgd_2d (_qsgd_kernel)
 //       16 B/element in fp32 (read v, u; write q, r), 8 B in bf16
-//   fedadc_sparse_reduce     out = sum_c w[c] * scatter_add(values_c @ indices_c)
-//       replaces sparse_reduce.py:sparse_reduce_2d (_sparse_reduce_kernel)
+//   fedadc_sparse_reduce_leaves  out_l = sum_c w[c] * scatter_add(values_lc @ indices_lc)
+//       for every leaf l of a table; replaces
+//       sparse_reduce.py:sparse_reduce_2d (_sparse_reduce_kernel)
 //       K*k*(value + 4 B index) read, the output written once
 //
 // All three are far under one operation per byte, so memory bounds them.
@@ -30,16 +31,40 @@
 //
 // The sparse reduce must add the clients in order and, within a client,
 // duplicate indices in pair order, as the plain version does; fp32
-// atomicAdd has no fixed order. So each block owns a tile of the output in
-// shared memory (an fp32 accumulator and a claim slot per element) and walks
-// the K clients in order; for each chunk of a client's pairs, every pair
-// that falls in the tile is applied, and where two pairs of the chunk hit
-// one element the one earlier in pair order claims it first (atomicMin on
-// its position) and the rest wait for the next claim round. The tile is
-// written once, cast to the output type. Every block reads every pair's
-// index: the cost of this simple form is (tiles)x the index bytes, which the
-// bound does not count.
+// atomicAdd has no fixed order.  One call reduces every leaf of an
+// aggregate, described by a leaf table (leaf_table.cuh), in four kernels,
+// so its work is O(K*k) and not O(tiles*K*k):
 //
+//   (a) count   the pairs, in their (leaf, client, pair) order, are cut
+//               into chunks of kChunk pairs of one leaf; a block counts its
+//               chunk's in-range pairs per output tile of kTile elements.
+//               The counts form a (tile, chunk) matrix per leaf, stored
+//               tile-major, the leaves one after another, so the output
+//               tiles are numbered across the leaves and no two leaves
+//               share one;
+//   (b) scan    one block takes the exclusive prefix sum of the whole
+//               matrix: every (tile, chunk) gets the first slot of its bin,
+//               so a tile's bin holds its pairs chunk by chunk;
+//   (c) scatter each block re-reads its chunk, each warp a contiguous
+//               sixteenth of it.  The warps' per-tile counts, scanned in warp
+//               order, give each warp a cursor per tile; a warp then walks
+//               its pairs 32 at a time, and ballots over the tile's bits
+//               rank the lanes that share a tile.  Each pair is staged in shared
+//               memory, sorted by tile, as (offset in tile, fp32 w_c*v)
+//               with its slot (the bin's first plus its rank), and the
+//               block copies the runs out: stable, so a bin holds its
+//               pairs in (client, pair) order;
+//   (d) apply   one block a tile zeroes an fp32 accumulator in shared
+//               memory and applies its bin in order.  Where two pairs of
+//               a segment hit one element, the earlier claims it first
+//               (atomicMin on its position) and the other waits for the
+//               next claim round; a bin without duplicates takes one
+//               round a segment.  The tile is written once, cast.
+//
+// No atomics touch a sum; indices outside [0, n) are dropped in (a) and
+// (c), so they add nothing.  The wrapper allocates the count matrix, its
+// scan and the bins (8 B a pair); the kernels allocate nothing.
+
 // Each entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() so a refused launch is reported to the caller.
 
@@ -48,15 +73,29 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "leaf_table.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocksX = 1024;
-constexpr int kReduceThreads = 512;
-constexpr int kItems = 4;                    // pairs per thread per chunk
-constexpr int kChunk = kReduceThreads * kItems;
-constexpr int kTile = 8192;                  // output elements per block
-constexpr int kReduceSmem = kTile * (sizeof(float) + sizeof(int));
+constexpr int kTileShift = 13;
+constexpr int kTile = 1 << kTileShift;       // output elements a tile
+constexpr int kChunk = 8192;                 // pairs a chunk
+constexpr int kCountThreads = 256;
+constexpr int kCountItems = kChunk / kCountThreads;      // pairs a thread
+constexpr int kScanThreads = 1024;
+constexpr int kScanItems = 16;               // entries a thread a round
+constexpr int kScanRound = kScanThreads * kScanItems;
+constexpr int kScanSmem = (kScanRound + kScanRound / 32) * sizeof(int);
+constexpr int kScatterWarps = 16;
+constexpr int kScatterThreads = 32 * kScatterWarps;
+constexpr int kScatterItems = kChunk / kScatterThreads;  // pairs a lane
+constexpr int kApplyThreads = 512;
+constexpr int kApplyItems = 4;               // pairs a thread a segment
+constexpr int kSegment = kApplyThreads * kApplyItems;
+constexpr int kApplySmem = kTile * (sizeof(float) + sizeof(int));
+constexpr int kMaxSmem = 232448;             // a block's shared memory on sm_90
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -124,74 +163,349 @@ __global__ void qsgd_kernel(const T* __restrict__ v, const T* __restrict__ u,
   }
 }
 
-template <typename TV, typename TO>
-__global__ void __launch_bounds__(kReduceThreads)
-sparse_reduce_kernel(const TV* __restrict__ values,
-                     const int32_t* __restrict__ indices,
-                     const float* __restrict__ w, TO* __restrict__ out,
-                     int64_t n_clients, int64_t k, int64_t n) {
+using leaf_table::SparseTable;
+
+// The lanes of the warp whose v equals this lane's, v < 2**bits (bits
+// uniform across the warp): one ballot a bit, so the cost grows with the
+// bits of the tile count, not with the number of distinct values.
+__device__ __forceinline__ unsigned same_value_lanes(unsigned v, int bits) {
+  unsigned peers = 0xffffffffu;
+  for (int b = 0; b < bits; ++b) {
+    const bool bit = (v >> b) & 1u;
+    const unsigned set = __ballot_sync(0xffffffffu, bit);
+    peers &= bit ? set : ~set;
+  }
+  return peers;
+}
+using leaf_table::find_leaf;
+using leaf_table::start_of;
+
+// The leaf, its chunk and the leaf's geometry for a block of (a) or (c).
+struct ChunkRef {
+  int leaf, chunk, chunks, tiles, mat0;
+  int64_t n, pair_lo, pair_hi;
+};
+
+__device__ __forceinline__ ChunkRef chunk_ref(const SparseTable& t) {
+  ChunkRef r;
+  r.leaf = find_leaf(t.chunk_end, t.n_leaves, blockIdx.x);
+  const int c0 = start_of(t.chunk_end, r.leaf);
+  r.chunk = blockIdx.x - c0;
+  r.chunks = t.chunk_end[r.leaf] - c0;
+  r.tiles = t.tile_end[r.leaf] - start_of(t.tile_end, r.leaf);
+  r.mat0 = start_of(t.mat_end, r.leaf);
+  r.n = t.n[r.leaf];
+  const int64_t pairs = t.pair_end[r.leaf] - start_of(t.pair_end, r.leaf);
+  r.pair_lo = (int64_t)r.chunk * kChunk;
+  r.pair_hi = min(pairs, r.pair_lo + kChunk);
+  return r;
+}
+
+// (a) counts[mat0 + tile*chunks + chunk] = in-range pairs of the chunk in
+// the tile.  Dynamic shared memory: one int per tile of the widest leaf.
+__global__ void __launch_bounds__(kCountThreads)
+sparse_count_kernel(const __grid_constant__ SparseTable t,
+                    int* __restrict__ counts) {
+  extern __shared__ int hist[];
+  const ChunkRef r = chunk_ref(t);
+  const int32_t* idx = static_cast<const int32_t*>(t.indices[r.leaf]);
+  int ix[kCountItems];  // all loads in flight before the first count
+#pragma unroll
+  for (int it = 0; it < kCountItems; ++it) {
+    const int64_t p = r.pair_lo + it * kCountThreads + threadIdx.x;
+    ix[it] = p < r.pair_hi ? idx[p] : -1;
+  }
+  for (int i = threadIdx.x; i < r.tiles; i += blockDim.x) hist[i] = 0;
+  __syncthreads();
+#pragma unroll
+  for (int it = 0; it < kCountItems; ++it) {
+    if (ix[it] >= 0 && ix[it] < r.n) atomicAdd(&hist[ix[it] >> kTileShift], 1);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < r.tiles; i += blockDim.x)
+    counts[r.mat0 + (int64_t)i * r.chunks + r.chunk] = hist[i];
+}
+
+// Exclusive prefix sum of a[0, n) in shared memory, by the whole block
+// (blockDim a multiple of 32), in rounds of blockDim entries -> the
+// total.  ws: 32 ints of shared memory.
+__device__ int block_exclusive_scan(int* a, int n, int* ws) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  int carry = 0;
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const int v = i < n ? a[i] : 0;
+    int x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) ws[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int w = lane < n_warps ? ws[lane] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      ws[lane] = w;
+    }
+    __syncthreads();
+    if (i < n) a[i] = carry + (warp ? ws[warp - 1] : 0) + x - v;
+    carry += ws[n_warps - 1];
+    __syncthreads();
+  }
+  return carry;
+}
+
+// Shared-memory index of entry e of a round, padded by one int every 32 so
+// that both the coalesced pass (thread t on entries j*blockDim + t) and
+// the per-thread pass (thread t on entries t*kScanItems + j) are free of
+// bank conflicts.
+__device__ __forceinline__ int padded_at(int e) { return e + (e >> 5); }
+
+// (b) scan[i] = sum of counts[0, i) for i in [0, m]; one block, in rounds
+// of kScanRound entries: loaded coalesced (the next round's loads in
+// flight while this one is scanned), staged in shared memory, scanned
+// kScanItems consecutive entries a thread, stored coalesced.
+__global__ void __launch_bounds__(kScanThreads)
+sparse_scan_kernel(const int* __restrict__ counts, int* __restrict__ scan,
+                   int64_t m) {
+  extern __shared__ int stage[];  // kScanSmem
+  __shared__ int ws[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int next[kScanItems];
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j) {
+    const int64_t g = (int64_t)j * kScanThreads + threadIdx.x;
+    next[j] = g < m ? counts[g] : 0;
+  }
+  int carry = 0;
+  for (int64_t base = 0; base < m; base += kScanRound) {
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j)
+      stage[padded_at(j * kScanThreads + threadIdx.x)] = next[j];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) {
+      const int64_t g = base + kScanRound + (int64_t)j * kScanThreads +
+                        threadIdx.x;
+      next[j] = g < m ? counts[g] : 0;
+    }
+    int v[kScanItems], local = 0;
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) {
+      v[j] = stage[padded_at(threadIdx.x * kScanItems + j)];
+      local += v[j];
+    }
+    int x = local;  // inclusive scan of the thread totals within the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) ws[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int w = ws[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      ws[lane] = w;
+    }
+    __syncthreads();
+    int run = carry + (warp ? ws[warp - 1] : 0) + x - local;
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) {
+      stage[padded_at(threadIdx.x * kScanItems + j)] = run;
+      run += v[j];
+    }
+    carry += ws[kScanThreads / 32 - 1];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) {
+      const int64_t g = base + (int64_t)j * kScanThreads + threadIdx.x;
+      if (g < m) scan[g] = stage[padded_at(j * kScanThreads + threadIdx.x)];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) scan[m] = carry;
+}
+
+// (c) bins[slot] = (offset in tile, fp32 w_c*v) for every in-range pair,
+// stable.  The block places its chunk in shared memory first, sorted by
+// tile (a tile's pairs are one run of its bin), then copies the runs out,
+// so neighbouring threads write neighbouring slots.  Dynamic shared
+// memory: the staged pairs and their slots (12 B a pair of the chunk), and
+// per tile of the widest leaf the bin's first slot, the tile's place in
+// the block and kScatterWarps 16-bit cursors (40 B).
+constexpr int kScatterFixedSmem = kChunk * (sizeof(uint2) + sizeof(int)) +
+                                  32 * sizeof(int);
+constexpr int kScatterTileSmem =
+    2 * sizeof(int) + kScatterWarps * sizeof(unsigned short);
+
+template <typename TV>
+__global__ void __launch_bounds__(kScatterThreads, 2)
+sparse_scatter_kernel(const __grid_constant__ SparseTable t,
+                      const float* __restrict__ w,
+                      const int* __restrict__ scan, uint2* __restrict__ bins) {
+  extern __shared__ uint2 staged[];  // [kChunk], then the ints below
+  int* slot_of = reinterpret_cast<int*>(staged + kChunk);  // [kChunk]
+  int* ws = slot_of + kChunk;                              // [32]
+  const ChunkRef r = chunk_ref(t);
+  int* first = ws + 32;                  // [tile] the bin's first slot
+  int* place = first + r.tiles;          // [tile] its place in the block
+  // [warp][tile] the warp's count, then its first rank (< kChunk)
+  unsigned short* cursor = reinterpret_cast<unsigned short*>(place + r.tiles);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int32_t* idx = static_cast<const int32_t*>(t.indices[r.leaf]);
+  const TV* val = static_cast<const TV*>(t.values[r.leaf]);
+  const int k = t.k[r.leaf];
+  // the warp's pairs, all loads in flight before any is used; -1 where a
+  // pair is past the chunk or its index is out of range.  Pair positions
+  // fit in 32 bits (the wrapper checks K*k < 2**31).
+  int ix[kScatterItems];
+  float wv[kScatterItems];
+  const int p0 = (int)r.pair_lo + warp * (kChunk / kScatterWarps) + lane;
+  const int hi = (int)r.pair_hi;
+#pragma unroll
+  for (int it = 0; it < kScatterItems; ++it) {
+    const int p = p0 + it * 32;
+    ix[it] = p < hi ? idx[p] : -1;
+    wv[it] = p < hi ? load(val, p) : 0.0f;
+  }
+#pragma unroll
+  for (int it = 0; it < kScatterItems; ++it) {
+    const int p = p0 + it * 32;
+    if (p < hi) wv[it] = __fmul_rn(w[p / k], wv[it]);
+    if (ix[it] >= r.n) ix[it] = -1;
+  }
+  unsigned short* mine = cursor + warp * r.tiles;
+  for (int i = threadIdx.x; i < kScatterWarps * r.tiles; i += blockDim.x)
+    cursor[i] = 0;
+  __syncthreads();
+  // each warp's count per tile, walking its pairs 32 at a time in order
+  // (one leader lane a tile adds the group); a pair's rank among the
+  // warp's earlier pairs of its tile is the count before its step plus its
+  // place among the lanes of the step that share the tile
+  const unsigned below = (1u << lane) - 1u;
+  const int bits = 32 - __clz(r.tiles);  // tile + 1 < 2**bits
+  int rank[kScatterItems];
+#pragma unroll
+  for (int it = 0; it < kScatterItems; ++it) {
+    const int tile = ix[it] >= 0 ? ix[it] >> kTileShift : -1;
+    const unsigned peers = same_value_lanes((unsigned)(tile + 1), bits);
+    const int before = tile >= 0 ? mine[tile] : 0;
+    __syncwarp();
+    if (tile >= 0 && lane == __ffs(peers) - 1)
+      mine[tile] = (unsigned short)(before + __popc(peers));
+    rank[it] = before + __popc(peers & below);
+    __syncwarp();
+  }
+  __syncthreads();
+  // cursors: each warp's first rank in the (tile, chunk) run, the earlier
+  // warps' pairs before it; the run's length, then its place in the block
+  for (int tile = threadIdx.x; tile < r.tiles; tile += blockDim.x) {
+    int run = 0;
+    for (int wp = 0; wp < kScatterWarps; ++wp) {
+      const int c = cursor[wp * r.tiles + tile];
+      cursor[wp * r.tiles + tile] = (unsigned short)run;
+      run += c;
+    }
+    place[tile] = run;
+    first[tile] = scan[r.mat0 + (int64_t)tile * r.chunks + r.chunk];
+  }
+  __syncthreads();
+  const int placed = block_exclusive_scan(place, r.tiles, ws);
+  // stage every pair at its rank in the (tile, chunk) run: the earlier
+  // warps' pairs of the tile, then the warp's own earlier ones
+#pragma unroll
+  for (int it = 0; it < kScatterItems; ++it) {
+    if (ix[it] >= 0) {
+      const int tile = ix[it] >> kTileShift;
+      const int at = mine[tile] + rank[it];
+      staged[place[tile] + at] = make_uint2(
+          (unsigned)(ix[it] & (kTile - 1)), __float_as_uint(wv[it]));
+      slot_of[place[tile] + at] = first[tile] + at;
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < placed; j += blockDim.x)
+    bins[slot_of[j]] = staged[j];
+}
+
+// (d) one block a tile: apply its bin in order into fp32 shared memory,
+// write the tile once.
+template <typename TO>
+__global__ void __launch_bounds__(kApplyThreads)
+sparse_apply_kernel(const __grid_constant__ SparseTable t,
+                    const int* __restrict__ scan,
+                    const uint2* __restrict__ bins) {
   extern __shared__ unsigned char smem[];
   float* acc = reinterpret_cast<float*>(smem);
   int* claim = reinterpret_cast<int*>(acc + kTile);
-  const int64_t tile_start = blockIdx.x * (int64_t)kTile;
-  const int64_t tile_len = min((int64_t)kTile, n - tile_start);
+  const int leaf = find_leaf(t.tile_end, t.n_leaves, blockIdx.x);
+  const int tile = blockIdx.x - start_of(t.tile_end, leaf);
+  const int chunks = t.chunk_end[leaf] - start_of(t.chunk_end, leaf);
+  const int64_t row = start_of(t.mat_end, leaf) + (int64_t)tile * chunks;
+  const int begin = scan[row], end = scan[row + chunks];
+  const int64_t tile_start = (int64_t)tile * kTile;
+  const int tile_len = (int)min((int64_t)kTile, t.n[leaf] - tile_start);
   for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
     acc[i] = 0.0f;
     claim[i] = INT_MAX;
   }
   __syncthreads();
-  for (int64_t c = 0; c < n_clients; ++c) {
-    const float wc = w[c];
-    const int32_t* idx_c = indices + c * k;
-    const TV* val_c = values + c * k;
-    for (int64_t base = 0; base < k; base += kChunk) {
-      int loc[kItems];
-      float add[kItems];
-      bool pending[kItems];
-      bool any = false;
+  for (int base = begin; base < end; base += kSegment) {
+    int loc[kApplyItems];
+    float add[kApplyItems];
+    bool pending[kApplyItems];
+    bool any = false;
 #pragma unroll
-      for (int it = 0; it < kItems; ++it) {
-        const int64_t j = base + it * kReduceThreads + threadIdx.x;
-        pending[it] = false;
-        if (j < k) {
-          const int64_t off = (int64_t)idx_c[j] - tile_start;
-          if (off >= 0 && off < tile_len) {
-            loc[it] = (int)off;
-            add[it] = __fmul_rn(wc, load(val_c, j));
-            pending[it] = true;
-            any = true;
-          }
-        }
+    for (int it = 0; it < kApplyItems; ++it) {
+      const int j = base + it * kApplyThreads + threadIdx.x;
+      pending[it] = j < end;
+      if (pending[it]) {
+        const uint2 b = bins[j];
+        loc[it] = (int)b.x;
+        add[it] = __uint_as_float(b.y);
+        any = true;
       }
-      // claim rounds: each pending pair bids its position in the chunk
-      // (= its pair order) for its element; the lowest bid adds, the rest
-      // bid again next round
-      while (__syncthreads_or(any)) {
+    }
+    // claim rounds: each pending pair bids its position in the segment
+    // (= its order in the bin) for its element; the lowest bid adds, the
+    // rest bid again next round
+    while (__syncthreads_or(any)) {
 #pragma unroll
-        for (int it = 0; it < kItems; ++it) {
-          if (pending[it]) atomicMin(&claim[loc[it]], it * kReduceThreads + (int)threadIdx.x);
-        }
-        __syncthreads();
-        any = false;
+      for (int it = 0; it < kApplyItems; ++it) {
+        if (pending[it])
+          atomicMin(&claim[loc[it]], it * kApplyThreads + (int)threadIdx.x);
+      }
+      __syncthreads();
+      any = false;
 #pragma unroll
-        for (int it = 0; it < kItems; ++it) {
-          if (pending[it]) {
-            if (claim[loc[it]] == it * kReduceThreads + (int)threadIdx.x) {
-              acc[loc[it]] = __fadd_rn(acc[loc[it]], add[it]);
-              claim[loc[it]] = INT_MAX;
-              pending[it] = false;
-            } else {
-              any = true;
-            }
+      for (int it = 0; it < kApplyItems; ++it) {
+        if (pending[it]) {
+          if (claim[loc[it]] == it * kApplyThreads + (int)threadIdx.x) {
+            acc[loc[it]] = __fadd_rn(acc[loc[it]], add[it]);
+            claim[loc[it]] = INT_MAX;
+            pending[it] = false;
+          } else {
+            any = true;
           }
         }
       }
     }
   }
   __syncthreads();
-  for (int64_t i = threadIdx.x; i < tile_len; i += blockDim.x) {
+  TO* out = static_cast<TO*>(t.out[leaf]);
+  for (int i = threadIdx.x; i < tile_len; i += blockDim.x)
     store(out, tile_start + i, acc[i]);
-  }
 }
 
 inline dim3 row_grid(int64_t n, int64_t rows) {
@@ -199,18 +513,70 @@ inline dim3 row_grid(int64_t n, int64_t rows) {
   return dim3((unsigned)(b < kMaxBlocksX ? b : kMaxBlocksX), (unsigned)rows);
 }
 
+// Once per process: each of the four kernels may take its largest dynamic
+// shared memory, and all four ask for one carveout (all shared), so the
+// card need not repartition L1 and shared memory between them.
 template <typename TV, typename TO>
-int launch_sparse_reduce(const void* values, const void* indices,
-                         const void* w, void* out, int64_t n_clients,
-                         int64_t k, int64_t n, cudaStream_t s) {
-  auto kernel = sparse_reduce_kernel<TV, TO>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kReduceSmem);
+cudaError_t allow_smem() {
+  static const cudaError_t once = [] {
+    const void* kernels[] = {(const void*)sparse_count_kernel,
+                             (const void*)sparse_scan_kernel,
+                             (const void*)sparse_scatter_kernel<TV>,
+                             (const void*)sparse_apply_kernel<TO>};
+    const int smem[] = {kMaxSmem, kScanSmem, kMaxSmem, kApplySmem};
+    for (int i = 0; i < 4; ++i) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize, smem[i]);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(kernels[i],
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  }();
+  return once;
+}
+
+template <typename TV, typename TO>
+int launch_sparse_reduce(const int64_t* rows, int64_t n_leaves, const void* w,
+                         int64_t n_clients, int* counts, int* scan,
+                         uint2* bins, cudaStream_t s) {
+  cudaError_t e = allow_smem<TV, TO>();
   if (e != cudaSuccess) return (int)e;
-  unsigned blocks = (unsigned)((n + kTile - 1) / kTile);
-  kernel<<<blocks, kReduceThreads, kReduceSmem, s>>>(
-      (const TV*)values, (const int32_t*)indices, (const float*)w, (TO*)out,
-      n_clients, k, n);
+  for (int64_t g = 0; g < n_leaves; g += leaf_table::kMaxLeaves) {
+    const int n = (int)(n_leaves - g < leaf_table::kMaxLeaves
+                            ? n_leaves - g : leaf_table::kMaxLeaves);
+    SparseTable t;
+    if (!leaf_table::make_sparse_table(rows + g * leaf_table::kSparseCols, n,
+                                       kTile, kChunk, n_clients, &t))
+      return (int)cudaErrorInvalidValue;
+    int widest = 0;  // tiles of the widest leaf: the shared memory of (a), (c)
+    for (int i = 0; i < n; ++i) {
+      const int tiles = t.tile_end[i] - (i ? t.tile_end[i - 1] : 0);
+      widest = tiles > widest ? tiles : widest;
+    }
+    const int64_t scatter_smem =
+        kScatterFixedSmem + (int64_t)kScatterTileSmem * widest;
+    if (scatter_smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    const int chunks = t.chunk_end[n - 1], tiles = t.tile_end[n - 1];
+    const int m = t.mat_end[n - 1];
+    if (chunks)
+      sparse_count_kernel<<<chunks, kCountThreads, widest * sizeof(int), s>>>(
+          t, counts);
+    sparse_scan_kernel<<<1, kScanThreads, kScanSmem, s>>>(counts, scan, m);
+    if (chunks)
+      sparse_scatter_kernel<TV><<<chunks, kScatterThreads, scatter_smem, s>>>(
+          t, (const float*)w, scan, bins);
+    if (tiles)
+      sparse_apply_kernel<TO><<<tiles, kApplyThreads, kApplySmem, s>>>(
+          t, scan, bins);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    counts += m;
+    scan += m + 1;
+    bins += t.pair_end[n - 1];
+  }
   return (int)cudaGetLastError();
 }
 
@@ -254,23 +620,30 @@ int fedadc_qsgd(const void* v, const void* u, const void* scale, void* q,
   return (int)cudaGetLastError();
 }
 
-int fedadc_sparse_reduce(const void* values, const void* indices,
-                         const void* w, void* out, int64_t n_clients,
-                         int64_t k, int64_t n, int value_dtype, int out_dtype,
-                         void* stream) {
+// rows: n_leaves host rows of leaf_table::kSparseCols int64 (values,
+// indices, out, n, k, ends of tiles, chunks, matrix entries and pairs); w
+// the K fp32 weights; counts, scan and bins device scratch of (per group
+// of kMaxLeaves leaves) m, m + 1 and K*sum(k) entries.
+int fedadc_sparse_reduce_leaves(const int64_t* rows, int64_t n_leaves,
+                                const void* w, int64_t n_clients, void* counts,
+                                void* scan, void* bins, int value_dtype,
+                                int out_dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  int* c = (int*)counts;
+  int* sc = (int*)scan;
+  uint2* b = (uint2*)bins;
   if (value_dtype == kF32 && out_dtype == kF32)
-    return launch_sparse_reduce<float, float>(values, indices, w, out,
-                                              n_clients, k, n, s);
+    return launch_sparse_reduce<float, float>(rows, n_leaves, w, n_clients, c,
+                                              sc, b, s);
   if (value_dtype == kF32 && out_dtype == kBF16)
-    return launch_sparse_reduce<float, __nv_bfloat16>(values, indices, w, out,
-                                                      n_clients, k, n, s);
+    return launch_sparse_reduce<float, __nv_bfloat16>(rows, n_leaves, w,
+                                                      n_clients, c, sc, b, s);
   if (value_dtype == kBF16 && out_dtype == kF32)
-    return launch_sparse_reduce<__nv_bfloat16, float>(values, indices, w, out,
-                                                      n_clients, k, n, s);
+    return launch_sparse_reduce<__nv_bfloat16, float>(rows, n_leaves, w,
+                                                      n_clients, c, sc, b, s);
   if (value_dtype == kBF16 && out_dtype == kBF16)
     return launch_sparse_reduce<__nv_bfloat16, __nv_bfloat16>(
-        values, indices, w, out, n_clients, k, n, s);
+        rows, n_leaves, w, n_clients, c, sc, b, s);
   return (int)cudaErrorInvalidValue;
 }
 

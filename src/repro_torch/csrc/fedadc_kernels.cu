@@ -3,7 +3,7 @@
 // Four kernels, each the CUDA counterpart of one Pallas kernel of the JAX
 // package (src/repro/kernels/):
 //
-//   fedadc_fused_axpy     out = x + a*y
+//   fedadc_fused_axpy_leaves  out_l = x_l + a*y_l for every leaf l of a table
 //       replaces fedadc_update.py:fused_axpy_2d (_axpy_kernel)
 //       12 B/element in fp32 (read x, y; write out), 6 B in bf16
 //   fedadc_local_update   out = theta - eta*(g + m_bar)
@@ -31,12 +31,24 @@
 // cannot contract them into an FMA: the fp32 results then equal the plain
 // PyTorch versions (repro_torch/kernels/ref.py) bit for bit.
 //
+// The axpy is the local step of every strategy (SGD, and FedADC's nesterov
+// half-step), so it runs 2·H times a round over every leaf of the model.
+// At the paper CNN's size a leaf is a few microseconds of device time, less
+// than the host's cost of one launch, so it takes a leaf table
+// (leaf_table.cuh): one launch covers every leaf of a sweep, each block a
+// tile of kAxpyTile elements of one leaf.  Where the leaf's three pointers
+// are 16-byte aligned a thread moves 16 bytes a load (4 fp32 or 8 bf16
+// elements), loading all its vectors before it computes; the tile's ragged
+// end, and a leaf that is not aligned, take the scalar path.
+//
 // Each entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() so a refused launch is reported to the caller.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "leaf_table.cuh"
 
 namespace {
 
@@ -59,11 +71,91 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float v) {
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < (n); \
        i += (int64_t)gridDim.x * blockDim.x)
 
+constexpr int64_t kAxpyTile = 2048;  // elements a block; a multiple of 8
+
+// 16 bytes of T as floats and back (bf16 is the upper half of an fp32).
 template <typename T>
-__global__ void axpy_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                            T* __restrict__ out, int64_t n, float a) {
-  FOR_EACH_ELEMENT(i, n) {
-    store(out, i, __fadd_rn(load(x, i), __fmul_rn(a, load(y, i))));
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  __device__ static void unpack(uint4 v, float* f) {
+    f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
+  }
+  __device__ static uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void unpack(uint4 v, float* f) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[2 * j] = __uint_as_float(w[j] << 16);
+      f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  }
+  __device__ static uint4 pack(const float* f) {
+    unsigned w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      w[j] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * j])) |
+             ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * j + 1]))
+              << 16);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+axpy_leaves_kernel(const __grid_constant__ leaf_table::AxpyTable t, float a) {
+  using V = Vec16<T>;
+  constexpr int kIters = kAxpyTile / (kThreads * V::kN);
+  static_assert(kIters * kThreads * V::kN == kAxpyTile, "tile");
+  const int leaf = leaf_table::find_leaf(t.end, t.n_leaves, blockIdx.x);
+  const int64_t lo =
+      (blockIdx.x - leaf_table::start_of(t.end, leaf)) * kAxpyTile;
+  const int64_t hi = min(t.n[leaf], lo + kAxpyTile);
+  const T* x = static_cast<const T*>(t.a[leaf]);
+  const T* y = static_cast<const T*>(t.b[leaf]);
+  T* out = static_cast<T*>(t.out[leaf]);
+  if (aligned16(x) && aligned16(y) && aligned16(out)) {
+    uint4 vx[kIters], vy[kIters];
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int64_t i = lo + ((int64_t)it * kThreads + threadIdx.x) * V::kN;
+      if (i + V::kN <= hi) {
+        vx[it] = *reinterpret_cast<const uint4*>(x + i);
+        vy[it] = *reinterpret_cast<const uint4*>(y + i);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int64_t i = lo + ((int64_t)it * kThreads + threadIdx.x) * V::kN;
+      if (i + V::kN <= hi) {
+        float fx[V::kN], fy[V::kN];
+        V::unpack(vx[it], fx);
+        V::unpack(vy[it], fy);
+#pragma unroll
+        for (int j = 0; j < V::kN; ++j) fx[j] = __fadd_rn(fx[j], __fmul_rn(a, fy[j]));
+        *reinterpret_cast<uint4*>(out + i) = V::pack(fx);
+      } else {
+        for (int64_t j = i; j < hi; ++j)
+          store(out, j, __fadd_rn(load(x, j), __fmul_rn(a, load(y, j))));
+      }
+    }
+  } else {
+    for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads)
+      store(out, i, __fadd_rn(load(x, i), __fmul_rn(a, load(y, i))));
   }
 }
 
@@ -115,18 +207,30 @@ inline unsigned blocks_for(int64_t n) {
 
 extern "C" {
 
-int fedadc_fused_axpy(const void* x, const void* y, void* out, int64_t n,
-                      float a, int dtype, void* stream) {
+// rows: n_leaves host rows of leaf_table::kAxpyCols int64 (x, y, out, n,
+// end of the leaf's kAxpyTile blocks); one launch per kMaxLeaves leaves
+// that hold any element.
+int fedadc_fused_axpy_leaves(const int64_t* rows, int64_t n_leaves, float a,
+                             int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kF32) {
-    axpy_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
-        (const float*)x, (const float*)y, (float*)out, n, a);
-  } else if (dtype == kBF16) {
-    axpy_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)y, (__nv_bfloat16*)out,
-        n, a);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
+  for (int64_t g = 0; g < n_leaves; g += leaf_table::kMaxLeaves) {
+    const int n = (int)(n_leaves - g < leaf_table::kMaxLeaves
+                            ? n_leaves - g : leaf_table::kMaxLeaves);
+    leaf_table::AxpyTable t;
+    if (!leaf_table::make_axpy_table(rows + g * leaf_table::kAxpyCols, n,
+                                     kAxpyTile, &t))
+      return (int)cudaErrorInvalidValue;
+    const int64_t blocks = t.end[n - 1];
+    if (blocks == 0) continue;
+    if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+    if (dtype == kF32)
+      axpy_leaves_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(t, a);
+    else
+      axpy_leaves_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, s>>>(
+          t, a);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }

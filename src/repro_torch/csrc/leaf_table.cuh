@@ -1,0 +1,128 @@
+// Leaf tables: one kernel launch over many leaves of a parameter tree.
+//
+// A sweep of the update and wire kernels touches every leaf of the model
+// (16 for the paper CNN, 76 for ResNet-18).  Launching once per leaf costs
+// one trip through Python, ctypes and the CUDA runtime for each, which at the
+// CNN's size is more than the kernels' own time.  A leaf table instead
+// describes up to kMaxLeaves leaves in one fixed-size struct that the
+// kernel takes by value as a __grid_constant__ parameter: no copy to the
+// device, no allocation, one launch.  Each leaf holds its pointers, its
+// element count and the inclusive end of its share of the grid ("ends",
+// a prefix over the leaves of blocks, tiles or chunks), so a block finds
+// its leaf by a binary search over the ends.
+//
+// The host side (repro_torch/kernels/leaf_table.py) packs one int64 row a
+// leaf: the row's fields in the order of the struct's members, the ends
+// restarting from 0 at every kMaxLeaves-th leaf.  A C entry point walks
+// the rows kMaxLeaves at a time, builds one struct from each group and
+// launches once per group.  Both structs stay well under the 4 KB limit of
+// a kernel's parameters (AxpyTable 2.6 KB, SparseTable 3.3 KB).
+#pragma once
+
+#include <stdint.h>
+
+namespace leaf_table {
+
+constexpr int kMaxLeaves = 64;
+
+// The elementwise table: two inputs, one output, n elements a leaf.
+// Host row: a, b, out, n, end of the leaf's blocks.
+constexpr int kAxpyCols = 5;
+struct AxpyTable {
+  const void* a[kMaxLeaves];
+  const void* b[kMaxLeaves];
+  void* out[kMaxLeaves];
+  int64_t n[kMaxLeaves];
+  int64_t end[kMaxLeaves];
+  int n_leaves;
+};
+
+// The sparse-reduce table: per leaf its stacked (K, k) wire (values,
+// int32 indices), the dense output of n elements, and three ends: output
+// tiles, chunks of pairs, and entries of the (tile, chunk) count matrix;
+// the fourth, pairs, places the leaf's bins.
+// Host row: values, indices, out, n, k, tile end, chunk end, matrix end,
+// pair end.
+constexpr int kSparseCols = 9;
+struct SparseTable {
+  const void* values[kMaxLeaves];
+  const void* indices[kMaxLeaves];
+  void* out[kMaxLeaves];
+  int64_t n[kMaxLeaves];
+  int32_t k[kMaxLeaves];
+  int32_t tile_end[kMaxLeaves];
+  int32_t chunk_end[kMaxLeaves];
+  int32_t mat_end[kMaxLeaves];
+  int32_t pair_end[kMaxLeaves];
+  int n_leaves;
+};
+
+// The leaf whose share of the grid holds unit b: the first leaf whose
+// inclusive end exceeds b (leaves with no units are passed over).
+template <typename I>
+__device__ __forceinline__ int find_leaf(const I* end, int n_leaves,
+                                         int64_t b) {
+  int lo = 0, hi = n_leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if ((int64_t)end[mid] > b) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+template <typename I>
+__device__ __forceinline__ I start_of(const I* end, int leaf) {
+  return leaf ? end[leaf - 1] : (I)0;
+}
+
+inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// Build the table of rows [0, n) (n <= kMaxLeaves).  Returns false if a
+// row's end does not follow from its count and the kernel's unit: a
+// packer whose unit differs from the kernel's is refused, not trusted.
+inline bool make_axpy_table(const int64_t* rows, int n, int64_t unit,
+                            AxpyTable* t) {
+  *t = AxpyTable{};
+  t->n_leaves = n;
+  int64_t prev = 0;
+  for (int i = 0; i < n; ++i) {
+    const int64_t* r = rows + (int64_t)i * kAxpyCols;
+    t->a[i] = (const void*)(intptr_t)r[0];
+    t->b[i] = (const void*)(intptr_t)r[1];
+    t->out[i] = (void*)(intptr_t)r[2];
+    t->n[i] = r[3];
+    t->end[i] = r[4];
+    if (r[3] < 0 || r[4] - prev != cdiv(r[3], unit)) return false;
+    prev = r[4];
+  }
+  return true;
+}
+
+inline bool make_sparse_table(const int64_t* rows, int n, int64_t tile,
+                              int64_t chunk, int64_t n_clients,
+                              SparseTable* t) {
+  *t = SparseTable{};
+  t->n_leaves = n;
+  int64_t tiles = 0, chunks = 0, mat = 0, pairs = 0;
+  for (int i = 0; i < n; ++i) {
+    const int64_t* r = rows + (int64_t)i * kSparseCols;
+    t->values[i] = (const void*)(intptr_t)r[0];
+    t->indices[i] = (const void*)(intptr_t)r[1];
+    t->out[i] = (void*)(intptr_t)r[2];
+    t->n[i] = r[3];
+    t->k[i] = (int32_t)r[4];
+    const int64_t nt = cdiv(r[3], tile), nc = cdiv(n_clients * r[4], chunk);
+    if (r[3] < 0 || r[4] < 0 || r[5] - tiles != nt || r[6] - chunks != nc ||
+        r[7] - mat != nt * nc || r[8] - pairs != n_clients * r[4] ||
+        r[7] > INT32_MAX || r[8] > INT32_MAX)
+      return false;
+    tiles = r[5], chunks = r[6], mat = r[7], pairs = r[8];
+    t->tile_end[i] = (int32_t)tiles;
+    t->chunk_end[i] = (int32_t)chunks;
+    t->mat_end[i] = (int32_t)mat;
+    t->pair_end[i] = (int32_t)pairs;
+  }
+  return true;
+}
+
+}  // namespace leaf_table

@@ -14,7 +14,8 @@ round's client deltas.  The weight families:
 ``weighted_mean`` is the one reduction dense deltas funnel through; leaf
 by leaf it runs the weighted-delta-reduce kernel (its plain version on
 CPU).  A stacked SparseLeaf wire (the sparse-native top-k uplink) takes
-``sparse_weighted_mean`` instead, the sparse-reduce kernel at K·k cost, and
+``sparse_weighted_mean`` instead, the sparse-reduce kernel at K·k cost
+over all leaves in one call, and
 its norms, dots and DRAG weights are read off the wire without densifying.
 """
 from __future__ import annotations
@@ -77,14 +78,13 @@ def sparse_cosine_divergence(wire, ref):
 
 def sparse_weighted_mean(wire, weights, like):
     """Σ_i w_i·Δ_i / Σ_i w_i where the stacked deltas are SparseLeaf wires:
-    the sparse-reduce kernel builds each dense leaf directly at K·k cost.
-    ``like`` gives the dense leaf shapes and dtypes.  fp32 accumulation,
-    cast on write, as in ``weighted_mean``."""
+    the sparse-reduce kernel builds every dense leaf directly at K·k cost,
+    one call for the whole tree.  ``like`` gives the dense leaf shapes and
+    dtypes.  fp32 accumulation, cast on write, as in ``weighted_mean``."""
     wn = weights.float() / torch.clamp(torch.sum(weights), min=_EPS)
-    return T.tree_map(
-        lambda w, l: ops.sparse_weighted_delta_reduce(
-            w.values, w.indices, wn, tuple(l.shape), l.dtype),
-        wire, like)
+    return ops.sparse_weighted_delta_reduce_tree(
+        T.tree_map(lambda w: w.values, wire),
+        T.tree_map(lambda w: w.indices, wire), wn, like)
 
 
 def reference_direction(server_state):

@@ -4,8 +4,9 @@ The kernels live as CUDA C++ under ``repro_torch/csrc/``.  Each source is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library with a
 plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds.  Builds happen at first use, never at import, into
-``repro_torch/csrc/build/`` under a name that carries a hash of the source
-and flags, so an edited source is rebuilt and a stale library never loads.
+``repro_torch/csrc/build/`` under a name that carries a hash of the source,
+the shared headers and the flags, so an edited source is rebuilt and a
+stale library never loads.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ _INT = ctypes.c_int
 # an int.  Every source also defines ``fedadc_error_string``.
 SIGNATURES = {
     SOURCES[0]: {
-        "fedadc_fused_axpy": [_P, _P, _P, _I64, _F, _INT, _P],
+        "fedadc_fused_axpy_leaves": [_P, _I64, _F, _INT, _P],
         "fedadc_local_update": [_P, _P, _P, _P, _I64, _F, _INT, _P],
         "fedadc_server_update": [_P, _P, _P, _P, _P, _I64, _F, _F, _INT, _P],
         "fedadc_weighted_reduce": [_P, _P, _P, _I64, _I64, _INT, _P],
@@ -43,8 +44,8 @@ SIGNATURES = {
     SOURCES[1]: {
         "fedadc_threshold_select": [_P, _P, _P, _P, _I64, _I64, _INT, _P],
         "fedadc_qsgd": [_P, _P, _P, _P, _P, _I64, _I64, _F, _INT, _P],
-        "fedadc_sparse_reduce": [_P, _P, _P, _P, _I64, _I64, _I64, _INT,
-                                 _INT, _P],
+        "fedadc_sparse_reduce_leaves": [_P, _I64, _P, _I64, _P, _P, _P,
+                                        _INT, _INT, _P],
     },
     SOURCES[2]: {
         "fedadc_kd_loss_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
@@ -77,8 +78,12 @@ def nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of the source, the headers
+    beside it (``*.cuh``, which any source may include) and the flags."""
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 

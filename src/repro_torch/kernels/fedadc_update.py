@@ -2,23 +2,28 @@
 ``csrc/fedadc_kernels.cu``).
 
 Counterparts of the Pallas kernels in the JAX package's
-``kernels/fedadc_update.py``: ``fused_axpy`` (``fused_axpy_2d``),
+``kernels/fedadc_update.py``: ``fused_axpy_leaves`` (``fused_axpy_2d``),
 ``local_update`` (``local_update_2d``) and ``server_update``
 (``server_update_2d``).  Each takes contiguous CUDA tensors of any shape —
 one leaf, or one leaf stacked over the round's clients — and treats them as
 flat buffers; the TPU's (rows, 128) lane tiling has no counterpart here.
+``fused_axpy_leaves`` takes a whole sweep, every leaf of a tree, as one
+leaf table (``leaf_table.py``): one launch for up to 64 leaves.
 
 Every wrapper checks its operands and raises on what the kernel does not
 take, allocates its outputs with ``torch.empty``, launches on the current
-stream, raises if the launch reports an error, and counts its launches in
-a plain integer attribute (``fused_axpy.launches``) so a run can show that
-it went through the kernel.
+stream, raises if the launch reports an error, and counts its device
+launches in a plain integer attribute (``fused_axpy_leaves.launches``: one
+a sweep of up to 64 leaves) so a run can show that it went through the
+kernel.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, leaf_table
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -52,16 +57,73 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+AXPY_TILE = 2048      # elements a block: kAxpyTile in csrc/fedadc_kernels.cu
+
+
+def _axpy_plan(shapes, dtype):
+    """What a sweep over leaves of ``shapes`` needs besides the pointers,
+    computed once per tree: the table rows with each output's byte offset
+    in place of its pointer, the output buffer's length, each view's
+    (shape, strides, offset) and the launches the table takes."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    fields, units, views, off = [], [], [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        fields.append((0, 0, off * esize, n))
+        units.append((leaf_table.cdiv(n, AXPY_TILE),))
+        views.append((shape, leaf_table.strides(shape), off))
+        off += leaf_table.padded(n)
+    rows, totals = leaf_table.pack(fields, units)
+    return (rows, off, views,
+            sum(1 for t in totals if t[0]))
+
+
+def fused_axpy_leaves(xs, ys, a: float):
+    """x_i + a·y_i for every pair of leaves, in one launch a group of 64
+    leaves -> the outputs, in order, as views of one buffer.  The leaves
+    may differ in shape but share one dtype and device.  The host work is
+    one lean pass over the leaves; the rest is planned once per tree."""
+    if len(xs) != len(ys):
+        raise ValueError(f"fused_axpy: {len(xs)} x leaves, {len(ys)} y")
+    if not xs:
+        return []
+    dtype, dev = xs[0].dtype, xs[0].get_device()
+    if dtype not in DTYPE_CODE:
+        raise ValueError(f"fused_axpy: dtype {dtype} not supported "
+                         f"(float32, bfloat16)")
+    for x, y in zip(xs, ys):
+        if (x.get_device() != dev or y.get_device() != dev or dev < 0
+                or x.dtype is not dtype or y.dtype is not dtype
+                or not x.is_contiguous() or not y.is_contiguous()):
+            check_operands("fused_axpy", x, y, dtype=dtype, shape=x.shape,
+                           device=dev)
+            raise ValueError(f"fused_axpy: operands on cuda:{dev} and "
+                             f"{x.device}, {y.device}")
+    shapes = tuple(x.shape for x in xs)
+    if tuple(y.shape for y in ys) != shapes:
+        raise ValueError("fused_axpy: x and y leaves differ in shape")
+    plan = _PLANS.get((shapes, dtype))
+    if plan is None:
+        plan = _PLANS.setdefault((shapes, dtype), _axpy_plan(shapes, dtype))
+    template, total, views, launches = plan
+    out = torch.empty(total, dtype=dtype, device=xs[0].device)
+    rows = template.copy()
+    rows[:, 0] = [x.data_ptr() for x in xs]
+    rows[:, 1] = [y.data_ptr() for y in ys]
+    rows[:, 2] += out.data_ptr()
+    build.launch("fedadc_fused_axpy_leaves", rows.ctypes.data, len(xs), a,
+                 DTYPE_CODE[dtype], stream())
+    fused_axpy_leaves.launches += launches
+    return [out.as_strided(shape, st, off) for shape, st, off in views]
+
+
+# sweep plans by (leaf shapes, dtype): a run sweeps a handful of trees
+_PLANS = {}
+
+
 def fused_axpy(x: torch.Tensor, y: torch.Tensor, a: float) -> torch.Tensor:
-    """x + a·y."""
-    check_operands("fused_axpy", x, y)
-    out = torch.empty_like(x)
-    if x.numel():
-        build.launch("fedadc_fused_axpy", x.data_ptr(), y.data_ptr(),
-                     out.data_ptr(), x.numel(), a, DTYPE_CODE[x.dtype],
-                     stream())
-        fused_axpy.launches += 1
-    return out
+    """x + a·y on one leaf: a table of one."""
+    return fused_axpy_leaves([x], [y], a)[0]
 
 
 def local_update(theta: torch.Tensor, g: torch.Tensor, m_bar: torch.Tensor,
@@ -95,6 +157,6 @@ def server_update(theta: torch.Tensor, m: torch.Tensor,
     return theta_out, m_out
 
 
-fused_axpy.launches = 0
+fused_axpy_leaves.launches = 0
 local_update.launches = 0
 server_update.launches = 0

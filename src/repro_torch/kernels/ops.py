@@ -3,7 +3,10 @@ package's ``kernels/ops.py``).
 
 A CUDA tensor launches the Hopper kernel (or the kernel's wrapper raises);
 a CPU tensor takes the kernel's plain version from ``ref``.  The device of
-the operands is the only thing that picks the path.
+the operands is the only thing that picks the path.  The ``*_tree`` forms
+take a whole sweep over a tree's leaves: on the card one leaf-table call
+per dtype, on the CPU the same per-leaf plain versions as the one-leaf
+forms.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core import tree as T
 from repro_torch.kernels import compress as _cp
 from repro_torch.kernels import fedadc_update as _fu
 from repro_torch.kernels import flash_attention as _fa
@@ -22,13 +26,13 @@ from repro_torch.kernels import weighted_reduce as _wr
 
 # the launching wrapper of every kernel, by the name the launch counts use
 KERNELS = {
-    "fused_axpy": _fu.fused_axpy,
+    "fused_axpy": _fu.fused_axpy_leaves,
     "local_update": _fu.local_update,
     "server_update": _fu.server_update,
     "weighted_reduce": _wr.weighted_reduce,
     "threshold_select": _cp.threshold_select,
     "qsgd": _cp.qsgd,
-    "sparse_reduce": _sr.sparse_reduce,
+    "sparse_reduce": _sr.sparse_reduce_leaves,
     "kd_loss": _kd.kd_loss,
     "kd_loss_bwd": _kd.kd_loss_bwd,
     "flash_attention": _fa.flash_attention,
@@ -51,6 +55,52 @@ def fused_axpy(x, y, a):
     if x.device.type == "cpu":
         return ref.fused_axpy(x, y, a)
     return _fu.fused_axpy(x, y, a)
+
+
+def _on_cpu(leaves, name):
+    """True if a sweep's leaves all lie on the CPU, False if all on the
+    card; raises if they mix."""
+    if all(t.is_cuda for t in leaves):
+        return False
+    if all(t.is_cpu for t in leaves):
+        return True
+    raise ValueError(f"{name}: leaves on mixed devices "
+                     f"{sorted({str(t.device) for t in leaves})}")
+
+
+def _per_dtype(keys, call):
+    """``call(positions)`` for each group of positions sharing a key (one
+    group, the common case, without regrouping) -> results in order."""
+    if all(k == keys[0] for k in keys):
+        return call(range(len(keys)))
+    outs = [None] * len(keys)
+    groups = {}
+    for i, key in enumerate(keys):
+        groups.setdefault(key, []).append(i)
+    for pos in groups.values():
+        for i, o in zip(pos, call(pos)):
+            outs[i] = o
+    return outs
+
+
+def _like(tree, outs):
+    """``outs`` (in leaf order) placed in a tree of ``tree``'s structure."""
+    it = iter(outs)
+    return T.tree_map(lambda _: next(it), tree)
+
+
+def fused_axpy_tree(xs_tree, ys_tree, a):
+    """x + a·y leaf by leaf over two trees of one structure (y cast to x's
+    dtype): on the card one launch a dtype (per 64 leaves)."""
+    xs, ys = T.leaves(xs_tree), T.leaves(ys_tree)
+    ys = [y if y.dtype is x.dtype else y.to(x.dtype) for x, y in zip(xs, ys)]
+    if _on_cpu(xs + ys, "fused_axpy"):
+        return _like(xs_tree, [ref.fused_axpy(x, y, a)
+                               for x, y in zip(xs, ys)])
+    return _like(xs_tree, _per_dtype(
+        [x.dtype for x in xs],
+        lambda pos: _fu.fused_axpy_leaves([xs[i] for i in pos],
+                                          [ys[i] for i in pos], a)))
 
 
 def fedadc_local_update(theta, g, m_bar, eta):
@@ -133,6 +183,29 @@ def sparse_weighted_delta_reduce(values, indices, weights, shape, dtype):
     return _sr.sparse_reduce(values.contiguous(),
                              indices.to(torch.int32).contiguous(),
                              weights.float().contiguous(), shape, dtype)
+
+
+def sparse_weighted_delta_reduce_tree(values_tree, indices_tree, weights,
+                                      like_tree):
+    """``sparse_weighted_delta_reduce`` over every leaf of an aggregate:
+    the stacked (K, k_l) wire pairs of each leaf into the dense shape and
+    dtype of ``like_tree``'s leaf -> a tree of ``like_tree``'s structure.
+    On the card one call (four kernels) per pair of value and output
+    dtypes."""
+    vals, idxs = T.leaves(values_tree), T.leaves(indices_tree)
+    likes = T.leaves(like_tree)
+    if _on_cpu(vals + idxs + [weights], "sparse_reduce"):
+        return _like(like_tree, [
+            ref.sparse_weighted_delta_reduce(v, i, weights, tuple(l.shape),
+                                             l.dtype)
+            for v, i, l in zip(vals, idxs, likes)])
+    w = weights.float()
+    idxs = [i if i.dtype is torch.int32 else i.to(torch.int32) for i in idxs]
+    return _like(like_tree, _per_dtype(
+        [(v.dtype, l.dtype) for v, l in zip(vals, likes)],
+        lambda pos: _sr.sparse_reduce_leaves(
+            [vals[i] for i in pos], [idxs[i] for i in pos], w,
+            [likes[i].shape for i in pos], likes[pos[0]].dtype)))
 
 
 # ---------------------------------------------------------------------------

@@ -60,7 +60,8 @@ def sparse_weighted_delta_reduce(values, indices, weights, shape, dtype):
     ``dtype``.  The weighted pairs are added into an fp32 zero buffer in
     client-major order and, within a client, in pair order (a duplicate
     index adds again, segment-sum semantics); the buffer is cast once, on
-    write.
+    write.  Pairs whose index lies outside [0, n) add nothing, as
+    ``segment_sum`` drops them in the reference.
 
     ``index_add_`` gives no order among duplicates within one call on the
     card (it adds with atomics), so each client's pairs are applied in
@@ -75,6 +76,9 @@ def sparse_weighted_delta_reduce(values, indices, weights, shape, dtype):
     for c in range(values.shape[0]):
         idx = indices[c].long()
         wv = w[c] * values[c].to(acc_t)
+        keep = (idx >= 0) & (idx < n)
+        if not bool(keep.all()):
+            idx, wv = idx[keep], wv[keep]
         rank = _occurrence_rank(idx)
         for r in range(int(rank.max()) + 1 if idx.numel() else 0):
             sel = rank == r

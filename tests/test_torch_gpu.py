@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA card; each skips without one: the
-nine kernels against their plain versions, and rounds of the simulator on
+kernels against their plain versions (the two sweep kernels over more
+leaves than one leaf table holds), and rounds of the simulator on
 the card (plain wire, dense and sparse top-k, FedADC+).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -167,6 +168,63 @@ def test_sparse_reduce_matches_plain(vdt, odt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_axpy_sweep_over_many_leaves(dtype):
+    """One sweep over 70 leaves (two leaf-table groups, so two launches) of
+    mixed lengths — empty, off the 2048-element tile, one not 16-byte
+    aligned — equals the plain version leaf by leaf, bit for bit."""
+    need_card()
+    g = torch.Generator().manual_seed(8)
+    lengths = [0, 1, 7, 2047, 2048, 2049, 100_003] * 10
+    xs = [torch.randn(3, n, generator=g).to("cuda", dtype) for n in lengths]
+    ys = [torch.randn(3, n, generator=g).to("cuda", dtype) for n in lengths]
+    xs[5] = torch.randn(3 * 2049 + 1, generator=g).to("cuda", dtype)[1:]
+    ys[5] = ys[5].reshape(-1)
+    ops.reset_launch_counts()
+    got = FU.fused_axpy_leaves(xs, ys, -0.05)
+    assert ops.launch_counts()["fused_axpy"] == 2
+    for o, x, y in zip(got, xs, ys):
+        assert o.shape == x.shape and torch.equal(o, ref.fused_axpy(x, y,
+                                                                    -0.05))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vdt,odt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+def test_sparse_reduce_sweep_over_many_leaves(vdt, odt):
+    """One call over 70 leaves (two table groups): unique and duplicate
+    indices, out-of-range indices, k = 0, an empty leaf and lengths off the
+    8192-element tile, each leaf bit for bit with the plain version."""
+    need_card()
+    g = torch.Generator().manual_seed(9)
+    K = 4
+    vals, idxs, shapes = [], [], []
+    for i in range(70):
+        n = (0, 1, 97, 8193, 20_000)[i % 5]
+        k = 0 if i % 7 == 3 or n == 0 else max(1, n // (3 + i % 4))
+        vals.append(torch.randn(K, k, generator=g).to("cuda", vdt))
+        if i % 3 == 0:
+            idx = torch.randint(-5, n + 5, (K, k), generator=g)
+        elif i % 3 == 1 and k <= n:
+            idx = torch.stack([torch.randperm(n, generator=g)[:k]
+                               for _ in range(K)])
+        else:
+            idx = torch.randint(0, max(n, 1), (K, k), generator=g)
+        idxs.append(idx.to("cuda", torch.int32))
+        shapes.append((n,))
+    w = torch.rand(K, generator=g).cuda()
+    ops.reset_launch_counts()
+    got = SR.sparse_reduce_leaves(vals, idxs, w, shapes, odt)
+    assert ops.launch_counts()["sparse_reduce"] == 1
+    for o, v, i, sh in zip(got, vals, idxs, shapes):
+        assert torch.equal(o, ref.sparse_weighted_delta_reduce(v, i, w, sh,
+                                                               odt))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 def test_sparse_reduce_bf16_k96_vs_fp64():
     need_card()
     K, N, k = 96, 4096, 409
@@ -214,7 +272,8 @@ def test_dense_and_sparse_topk_rounds_on_the_card():
     n_leaves = len(T.leaves(updates[0]))
     assert counts[0]["threshold_select"] == n_leaves
     assert counts[0]["sparse_reduce"] == 0
-    assert counts[1]["sparse_reduce"] == n_leaves
+    # the sparse aggregate is one call for all leaves
+    assert counts[1]["sparse_reduce"] == 1
     assert counts[1]["threshold_select"] == 0
     num = sum(((a - b) ** 2).sum() for a, b in zip(T.leaves(updates[0]),
                                                    T.leaves(updates[1])))

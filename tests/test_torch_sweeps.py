@@ -1,0 +1,233 @@
+"""The sweep forms of the port's update and wire kernels: one call over
+every leaf of a tree, described to the card by a leaf table.
+
+On the CPU the tree forms (``ops.fused_axpy_tree``,
+``ops.sparse_weighted_delta_reduce_tree``) run the same per-leaf plain
+versions as the one-leaf forms, so they are held bit for bit against
+those, and the sparse sweep also against the JAX package's
+``sparse_weighted_delta_reduce`` (client-major, pair-order fp32 sums on
+both sides).  The packer of the leaf table is pure Python, so its layout
+and its split into groups of 64 leaves are checked here with CPU
+``data_ptr()``s; the kernels that read the table need the card
+(``tests/test_torch_gpu.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.core import strategies as S
+from repro_torch.core import tree as T
+from repro_torch.kernels import fedadc_update as FU
+from repro_torch.kernels import leaf_table as LT
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sparse_reduce as SR
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+# mixed shapes: a conv kernel, a bias, a scalar, an empty leaf, a ragged
+# length, stacked over K=3 clients
+SHAPES = {"c1": {"w": (3, 3, 3, 5), "b": (5,)}, "s": (), "e": (0, 4),
+          "d": {"w": (37, 11), "b": (11,)}}
+
+
+def stacked_tree(seed, dtype, k=3):
+    """A tree of SHAPES stacked over k clients (T.tree_map recurses into
+    dicts only, so the shape tuples are its leaves)."""
+    rng = np.random.RandomState(seed)
+    return T.tree_map(
+        lambda s: torch.from_numpy(rng.randn(k, *s).astype(np.float32)
+                                   ).to(dtype), SHAPES)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_axpy_tree_equals_per_leaf_plain(dtype):
+    dt = DTYPES[dtype]
+    xs, ys = stacked_tree(0, dt), stacked_tree(1, dt)
+    ops.reset_launch_counts()
+    got = ops.fused_axpy_tree(xs, ys, -0.05)
+    assert ops.launch_counts()["fused_axpy"] == 0
+    for g, x, y in zip(T.leaves(got), T.leaves(xs), T.leaves(ys)):
+        assert g.dtype == dt and g.shape == x.shape
+        assert torch.equal(g, ref.fused_axpy(x, y, -0.05))
+    assert list(got) == list(xs) and list(got["c1"]) == ["w", "b"]
+
+
+def test_fused_axpy_tree_mixed_dtypes_cast_y_and_keep_x_dtype():
+    xs = {"a": torch.randn(4, 7), "b": torch.randn(4, 3).bfloat16()}
+    ys = {"a": torch.randn(4, 7).bfloat16(), "b": torch.randn(4, 3)}
+    got = ops.fused_axpy_tree(xs, ys, 0.5)
+    for key in xs:
+        assert got[key].dtype == xs[key].dtype
+        assert torch.equal(got[key], ops.fused_axpy(xs[key], ys[key], 0.5))
+
+
+def test_sweeps_refuse_mixed_devices():
+    xs = {"a": torch.randn(3), "b": torch.randn(3, device="meta")}
+    with pytest.raises(ValueError, match="mixed devices"):
+        ops.fused_axpy_tree(xs, xs, 0.5)
+    with pytest.raises(ValueError, match="mixed devices"):
+        ops.sparse_weighted_delta_reduce_tree(
+            {"a": torch.randn(2, 3)},
+            {"a": torch.zeros((2, 3), dtype=torch.int32)},
+            torch.ones(2, device="meta"), {"a": torch.zeros(8)})
+
+
+def test_sgd_step_runs_the_tree_form():
+    """The SGD step (and so the nesterov half-step's kernel) equals the
+    per-leaf axpy θ − η·g bit for bit."""
+    from repro_torch.configs.base import FedConfig
+    theta, g = stacked_tree(2, torch.float32), stacked_tree(3, torch.float32)
+    got = S._sgd_step(theta, g, 0.05, FedConfig())
+    for a, t, gi in zip(T.leaves(got), T.leaves(theta), T.leaves(g)):
+        assert torch.equal(a, ref.fused_axpy(t, gi, -0.05))
+
+
+def sparse_wire(seed, K, shapes, k_frac=0.3, dup=True, dtype=torch.float32):
+    """Per leaf (values (K, k), indices (K, k) int32): random indices with
+    duplicates within and across clients when ``dup``, else unique."""
+    rng = np.random.RandomState(seed)
+    vals, idxs = {}, {}
+    for name, shape in shapes.items():
+        n = int(np.prod(shape)) if shape else 1
+        k = max(1, int(k_frac * n)) if n else 0
+        vals[name] = torch.from_numpy(rng.randn(K, k).astype(np.float32)
+                                      ).to(dtype)
+        if dup:
+            idx = rng.randint(0, max(n, 1), (K, k))
+        else:
+            idx = np.stack([rng.choice(n, size=k, replace=False)
+                            for _ in range(K)])
+        idxs[name] = torch.from_numpy(idx.astype(np.int32))
+    return vals, idxs
+
+
+SPARSE_SHAPES = {"w": (64, 32), "b": (17,), "s": (), "r": (9001,)}
+
+
+@pytest.mark.parametrize("vdt,odt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32")])
+@pytest.mark.parametrize("dup", [True, False])
+def test_sparse_tree_matches_jax_reference(vdt, odt, dup):
+    """Duplicates within and across clients (``dup``) or top-k-like unique
+    indices: every leaf of the sweep equals the JAX package's
+    ``sparse_weighted_delta_reduce`` and the port's per-leaf plain
+    version bit for bit."""
+    K = 5
+    vals, idxs = sparse_wire(4 if dup else 5, K, SPARSE_SHAPES, dup=dup,
+                             dtype=DTYPES[vdt])
+    w = torch.from_numpy(np.random.RandomState(6).uniform(0.2, 1.0, K)
+                         .astype(np.float32))
+    like = {n: torch.zeros(s, dtype=DTYPES[odt])
+            for n, s in SPARSE_SHAPES.items()}
+    got = ops.sparse_weighted_delta_reduce_tree(vals, idxs, w, like)
+    for name, shape in SPARSE_SHAPES.items():
+        assert got[name].shape == shape and got[name].dtype == DTYPES[odt]
+        plain = ops.sparse_weighted_delta_reduce(vals[name], idxs[name], w,
+                                                 shape, DTYPES[odt])
+        assert torch.equal(got[name], plain)
+        want = jref.sparse_weighted_delta_reduce(
+            jnp.asarray(vals[name].float().numpy(), JAX_DT[DTYPES[vdt]]),
+            jnp.asarray(idxs[name].numpy()), jnp.asarray(w.numpy()), shape,
+            JAX_DT[DTYPES[odt]])
+        np.testing.assert_array_equal(
+            got[name].float().numpy(),
+            np.asarray(jnp.asarray(want).astype(jnp.float32)))
+
+
+def test_sparse_tree_drops_out_of_range_indices():
+    """Indices below 0 or at n and above add nothing, in the sweep, in the
+    per-leaf plain version and in the reference's ``segment_sum``; an empty
+    wire (k = 0) gives zeros."""
+    K = 3
+    vals, idxs = sparse_wire(8, K, {"a": (40,), "b": (7, 3)})
+    idxs["a"][0, :4] = torch.tensor([-1, 40, 1000, -77], dtype=torch.int32)
+    idxs["b"][2, -2:] = torch.tensor([21, -21], dtype=torch.int32)
+    vals["z"] = torch.zeros((K, 0))
+    idxs["z"] = torch.zeros((K, 0), dtype=torch.int32)
+    shapes = {"a": (40,), "b": (7, 3), "z": (6,)}
+    w = torch.tensor([0.5, 0.25, 1.0])
+    like = {n: torch.zeros(s) for n, s in shapes.items()}
+    got = ops.sparse_weighted_delta_reduce_tree(vals, idxs, w, like)
+    assert torch.equal(got["z"], torch.zeros(6))
+    for name in ("a", "b"):
+        plain = ref.sparse_weighted_delta_reduce(vals[name], idxs[name], w,
+                                                 shapes[name], torch.float32)
+        assert torch.equal(got[name], plain)
+        want = jref.sparse_weighted_delta_reduce(
+            jnp.asarray(vals[name].numpy()), jnp.asarray(idxs[name].numpy()),
+            jnp.asarray(w.numpy()), shapes[name], jnp.float32)
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(want))
+    keep = (idxs["a"] >= 0) & (idxs["a"] < 40)
+    manual = torch.zeros(40).index_add_(
+        0, idxs["a"][keep].long(), (w[:, None] * vals["a"])[keep])
+    torch.testing.assert_close(got["a"], manual, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the leaf-table packer
+# ---------------------------------------------------------------------------
+def test_pack_lays_out_fields_then_inclusive_ends():
+    xs = [torch.randn(n) for n in (5000, 0, 2048, 1)]
+    ys = [torch.randn(n) for n in (5000, 0, 2048, 1)]
+    fields = [(x.data_ptr(), y.data_ptr(), 4096 * i, x.numel())
+              for i, (x, y) in enumerate(zip(xs, ys))]
+    units = [(LT.cdiv(x.numel(), 2048), x.numel()) for x in xs]
+    rows, totals = LT.pack(fields, units)
+    assert rows.shape == (4, 6) and rows.dtype.name == "int64"
+    ends = [(3, 5000), (3, 5000), (4, 7048), (5, 7049)]
+    for row, f, e in zip(rows.tolist(), fields, ends):
+        assert row == list(f) + list(e)
+    assert totals == [(5, 7049)]
+
+
+@pytest.mark.parametrize("n_leaves,capacity", [(64, 64), (65, 64), (76, 64),
+                                               (130, 64), (7, 3)])
+def test_pack_splits_above_capacity_and_restarts_the_ends(n_leaves,
+                                                          capacity):
+    fields = [(i, 10 * i) for i in range(n_leaves)]
+    units = [(i % 4,) for i in range(n_leaves)]
+    rows, totals = LT.pack(fields, units, capacity)
+    assert rows.shape == (n_leaves, 3)
+    assert len(totals) == -(-n_leaves // capacity)
+    run = 0
+    for i, row in enumerate(rows.tolist()):
+        if i % capacity == 0:
+            run = 0
+        run += i % 4
+        assert row == [i, 10 * i, run]
+    for g, tot in enumerate(totals):
+        group = range(g * capacity, min(n_leaves, (g + 1) * capacity))
+        assert tot == (sum(i % 4 for i in group),)
+
+
+def test_pack_empty_and_padding():
+    rows, totals = LT.pack([], [])
+    assert rows.size == 0 and totals == []
+    assert [LT.padded(n) for n in (0, 1, 8, 9, 4097)] == [0, 8, 8, 16, 4104]
+
+
+def test_sweep_wrappers_refuse_cpu_and_unsupported_operands():
+    """The kernels' own wrappers never compute on the CPU: a CPU tensor, an
+    unsupported dtype or a mismatched pair raises before any launch."""
+    x = torch.randn(8, 10)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        FU.fused_axpy_leaves([x, x], [x, x], 0.5)
+    with pytest.raises(ValueError, match="not supported"):
+        FU.fused_axpy_leaves([x.double()], [x.double()], 0.5)
+    with pytest.raises(ValueError, match="leaves"):
+        FU.fused_axpy_leaves([x], [], 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        SR.sparse_reduce_leaves([x], [x.int()], torch.ones(8), [(10,)],
+                                torch.float32)
+    with pytest.raises(ValueError, match="not supported"):
+        SR.sparse_reduce_leaves([x], [x.int()], torch.ones(8), [(10,)],
+                                torch.float64)
+    assert FU.fused_axpy_leaves([], [], 0.5) == []
+    assert SR.sparse_reduce_leaves([], [], torch.ones(8), [],
+                                   torch.float32) == []
+    assert ops.launch_counts()["fused_axpy"] == 0
+    assert ops.launch_counts()["sparse_reduce"] == 0
