@@ -7,20 +7,22 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
-1. build    — compile the port's CUDA kernels with nvcc for sm_90a;
+1. build    — compile the port's CUDA kernels with nvcc for sm_90a, and log
+              each kernel's registers and spills (ptxas -v);
 2. kernels  — hold each of the seven update and wire kernels against its
               plain PyTorch version on the card, bit for bit in fp32 and
               bf16, at the main path's leaf shapes (the paper CNN at width
               32, its 16 leaves stacked over K=8 clients) and at
-              ResNet-18's largest leaf stacked over K=8; the two sweep
-              kernels (fused_axpy, one launch per 64 leaves, and the
-              sparse reduce, one call of four kernels per aggregate) also
-              over ResNet-18's 76 leaves (two leaf-table groups), over
-              edge sweeps (an empty leaf, lengths off the tile, a leaf not
-              16-byte aligned, k = 0, out-of-range indices) and, for the
-              reduce, duplicate indices within and across clients; the
-              weighted and the sparse reduce also at K=96 bf16 against an
-              fp64 oracle (1 bf16 ulp);
+              ResNet-18's largest leaf stacked over K=8; the three sweep
+              kernels (fused_axpy and the weighted reduce, one launch per
+              64 leaves, and the sparse reduce, one call of four kernels
+              per aggregate) also over ResNet-18's 76 leaves (two
+              leaf-table groups), over edge sweeps (an empty leaf, lengths
+              off the tile, a leaf not 16-byte aligned, k = 0,
+              out-of-range indices) and, for the sparse reduce, duplicate
+              indices within and across clients; the weighted and the
+              sparse reduce also at K=96 bf16 against an fp64 oracle (1
+              bf16 ulp);
               the KD forward and backward kernels in fp32 and bf16 at the
               FedADC+ CNN's (512, 10) (K=8 clients x batch 64 folded, 8
               groups of rho), ResNet-18's (512, 100), the reference sweep's
@@ -30,14 +32,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               bf16 at the reference sweep (MHA, GQA 2, MQA at D 128, L 192,
               windows 32/64/128), zamba2-1.2b's prefill (B 4, H 32, L 2048,
               D 64) and Qwen3's GQA 32/8 at D 128, within 2e-5 / 2e-2 abs +
-              rel; the SSD scan at the reference sweep, a ragged L 300 and
+              rel (bf16 on the tensor cores, fp32 on the CUDA cores); the
+              SSD scan at the reference sweep, a ragged L 300 and
               zamba2-1.2b's prefill (b 4, L 2048, H 64, P 64, N 64, chunk
-              256), within 2e-5 / 5e-2 of max |y|; then time each kernel, its
+              256), within 2e-5 / 5e-2 of max |y|; both refuse operands
+              that need a gradient; then time each kernel, its
               plain version and, where one PyTorch call computes the same
               function, that call (flash: scaled_dot_product_attention;
               fused_axpy: torch._foreach_add, the per-leaf torch.add sweep
-              logged beside it; the sparse reduce: index_add_ per leaf),
-              and both LM kernels at the prefill_32k length (L 32768);
+              logged beside it; the weighted reduce: torch.tensordot per
+              leaf; the sparse reduce: index_add_ per leaf), flash in bf16
+              at the prefill shape too, and both LM kernels at the
+              prefill_32k length (L 32768);
 3. main     — the paper CNN at width 32 on 32x32x3 images at CIFAR-10
               cardinality (50000/10000), sort-and-partition s=2 over 100
               clients, FedConfig defaults (|S|=8, H=8, nesterov) but eta 0.01,
@@ -102,6 +108,7 @@ tensor cores and 989 TFLOP/s of bf16 in them.
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -135,7 +142,7 @@ SOURCE = {name: (WIRE_SOURCE if name in ("threshold_select", "qsgd",
 SOURCE["flash_attention"] = "src/repro_torch/csrc/attention_kernels.cu"
 SOURCE["ssd_scan"] = "src/repro_torch/csrc/ssd_kernels.cu"
 # the kernels that take a whole sweep in one call (leaf tables)
-SWEEP_KERNELS = ("fused_axpy", "sparse_reduce")
+SWEEP_KERNELS = ("fused_axpy", "weighted_reduce", "sparse_reduce")
 K = 8
 ETA = 0.01
 TOPK_FRAC = 0.1
@@ -155,6 +162,46 @@ WIRES = {
 
 def log(*a):
     print(*a, flush=True)
+
+
+def kernel_name(mangled):
+    """A readable name for a mangled kernel symbol: its namespaces and name
+    (the anonymous namespace dropped) and an integer template argument."""
+    i = mangled.find("_ZN")
+    if i < 0:
+        return mangled
+    i, parts = i + 3, []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    name = "::".join(p for p in parts if not p.startswith("_GLOBAL__N"))
+    arg = re.match(r"IL[ib](\d+)E", mangled[i:])
+    if arg:
+        return f"{name}<{arg.group(1)}>"
+    return name + ("<bf16>" if mangled[i:i + 17] == "I13__nv_bfloat16E"
+                   else "<f32>" if mangled[i:i + 3] == "IfE" else "")
+
+
+def ptxas_usage(build_log):
+    """[(kernel, registers, spill-store bytes)] from ptxas -v output."""
+    out, name, spill = [], None, 0
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = kernel_name(m.group(1)), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 def cuda_ms(torch, fn, iters=30, warmup=3):
@@ -310,7 +357,7 @@ def sweeps(torch, FU, WR, ref, shapes, dtype, gen):
                      for t, m, d in zip(th, ms, ds)],
             None),
         "weighted_reduce": (
-            lambda: [WR.weighted_reduce(x, w) for x in xs],
+            lambda: WR.weighted_reduce_leaves(xs, w),
             lambda: [ref.weighted_delta_reduce(x, w) for x in xs],
             lambda: [torch.tensordot(w, x, 1) for x in xs]),
     }
@@ -401,13 +448,15 @@ def profile_round(torch, sim, round_s, tag, top=12):
 
 def expected_wire_launches(tag, rounds, n_leaves, h_steps):
     """The launches `rounds` nesterov FedADC rounds make on wire `tag`:
-    the axpy one launch a sweep (per 64 leaves), the sparse reduce one call
-    an aggregate, the other kernels one launch a leaf."""
-    per_round = {"fused_axpy": 2 * h_steps * table_groups(n_leaves),
+    the axpy and the weighted reduce one launch a sweep (per 64 leaves),
+    the sparse reduce one call an aggregate, the other kernels one launch a
+    leaf."""
+    groups = table_groups(n_leaves)
+    per_round = {"fused_axpy": 2 * h_steps * groups,
                  "local_update": 0,
                  # every wire but (b) aggregates dense
                  "server_update": n_leaves,
-                 "weighted_reduce": 0 if tag == "b_topk_sparse" else n_leaves,
+                 "weighted_reduce": 0 if tag == "b_topk_sparse" else groups,
                  "threshold_select": n_leaves if tag == "a_topk_dense" else 0,
                  # QSGD on the uplink and on the θ delta of the downlink
                  # (FedADC's ctx is derived from it, not sent)
@@ -458,19 +507,22 @@ def max_err(got, want):
     return max(flat)
 
 
-def sweep_kernel_checks(torch, FU, SR, ref, gen, resnet_shapes, errs):
-    """The two leaf-table kernels against their plain versions on the card,
-    bit for bit, in fp32 and bf16: over ResNet-18's 76 leaves stacked over
-    K (two table groups) and over edge sweeps — an empty leaf, lengths off
-    the axpy's 2048 and the reduce's 8192-element tiles, a leaf whose
-    pointers are not 16-byte aligned (the scalar path), k = 0, out-of-range
-    indices, duplicate indices within and across clients."""
+def sweep_kernel_checks(torch, FU, WR, SR, ref, gen, resnet_shapes, errs):
+    """The three leaf-table kernels against their plain versions on the
+    card, bit for bit, in fp32 and bf16: over ResNet-18's 76 leaves stacked
+    over K (two table groups) and over edge sweeps — an empty leaf, lengths
+    off the axpy's 2048, the weighted reduce's 1024 / 2048 and the sparse
+    reduce's 8192-element tiles, a leaf whose pointers are not 16-byte
+    aligned (the scalar path), k = 0, out-of-range indices, duplicate
+    indices within and across clients."""
     dev = "cuda"
 
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen).to(dev, dtype)
     r_stacked = [(K,) + tuple(sh) for sh in resnet_shapes]
-    edge = [(K, 0), (K, 1), (K, 3, 5, 7), (K, 2047), (K, 2049), (K, 4097)]
+    edge = [(K, 0), (K, 1), (K, 3, 5, 7), (K, 1023), (K, 1025), (K, 2047),
+            (K, 2049), (K, 4097)]
+    w = torch.rand(K, generator=gen).to(dev)
     for dtype in (torch.float32, torch.bfloat16):
         for tag, shapes in (("resnet18", r_stacked), ("edge", edge)):
             xs = [rnd(sh, dtype) for sh in shapes]
@@ -478,15 +530,19 @@ def sweep_kernel_checks(torch, FU, SR, ref, gen, resnet_shapes, errs):
             if tag == "edge":   # views one element past an aligned start
                 xs.append(rnd(K * 2049 + 1, dtype)[1:].view(K, 2049))
                 ys.append(rnd(K * 2049 + 1, dtype)[1:].view(K, 2049))
-            e = max_err(FU.fused_axpy_leaves(xs, ys, -0.05),
-                        [ref.fused_axpy(x, y, -0.05) for x, y in zip(xs, ys)])
-            torch.cuda.synchronize()
-            log(f"check fused_axpy {dtype} sweep {tag} ({len(xs)} leaves): "
-                f"max |kernel - plain| = {e}")
-            if e != 0.0:
-                raise AssertionError(f"fused_axpy {dtype} {tag} sweep "
-                                     f"differs from its plain version")
-            errs["fused_axpy"] = max(errs["fused_axpy"], e)
+            for name, got, want in (
+                    ("fused_axpy", FU.fused_axpy_leaves(xs, ys, -0.05),
+                     [ref.fused_axpy(x, y, -0.05) for x, y in zip(xs, ys)]),
+                    ("weighted_reduce", WR.weighted_reduce_leaves(xs, w),
+                     [ref.weighted_delta_reduce(x, w) for x in xs])):
+                e = max_err(got, want)
+                torch.cuda.synchronize()
+                log(f"check {name} {dtype} sweep {tag} ({len(xs)} leaves): "
+                    f"max |kernel - plain| = {e}")
+                if e != 0.0:
+                    raise AssertionError(f"{name} {dtype} {tag} sweep "
+                                         f"differs from its plain version")
+                errs[name] = max(errs[name], e)
             del xs, ys
     # (n, k, index draw): unique top-k-like, or random with duplicates and
     # out-of-range indices
@@ -496,7 +552,6 @@ def sweep_kernel_checks(torch, FU, SR, ref, gen, resnet_shapes, errs):
                  (8193, 820, "unique"), (100_003, 10_001, "unique"),
                  (997, 4096, "dups"), (3000, 400, "out-of-range"),
                  (20_000, 9000, "dups")]
-    w = torch.rand(K, generator=gen).to(dev)
     for vdt, odt in ((torch.float32, torch.float32),
                      (torch.bfloat16, torch.bfloat16),
                      (torch.bfloat16, torch.float32)):
@@ -650,6 +705,30 @@ def lm_kernel_checks(torch, FA, SSD, ref, gen, errs):
                                      f"differs from plain")
             errs["ssd_scan"] = max(errs["ssd_scan"], err)
             del xdt, a, Bm, Cm, got, want
+    refuse_grad_check(torch)
+
+
+def refuse_grad_check(torch):
+    """On the card neither LM kernel has a backward: ops refuses operands
+    that need a gradient under grad mode, and runs them under no_grad."""
+    from repro_torch.kernels import ops
+    q = torch.randn(1, 64, 2, 64, device="cuda", requires_grad=True)
+    x = torch.randn(1, 64, 2, 16, device="cuda", requires_grad=True)
+    dt = torch.rand(1, 64, 2, device="cuda")
+    A_log, D = torch.zeros(2, device="cuda"), torch.ones(2, device="cuda")
+    Bm = torch.randn(1, 64, 2, 8, device="cuda")
+    calls = {"flash_attention": lambda: ops.flash_attention(q, q, q),
+             "ssd_scan": lambda: ops.ssd_scan(x, dt, A_log, Bm, Bm, D, 16)}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            log(f"check {name} refuses a gradient: {e}")
+        else:
+            raise AssertionError(f"{name}: ran under grad on operands that "
+                                 f"require grad")
+        with torch.no_grad():
+            call()
 
 
 def lm_kernel_times(torch, FA, SSD, ref, gen):
@@ -671,6 +750,19 @@ def lm_kernel_times(torch, FA, SSD, ref, gen):
         "bound_ms": b_ms, "bound_by": b_by}
     log(f"time flash_attention {fshape} fp32 ({flops:.4g} flops): "
         f"{json.dumps(timed['flash_attention'])}")
+    del q, k, v, qt, kt, vt
+    # the same shape in bf16, on the tensor cores
+    q, k, v = flash_operands(torch, fshape, torch.bfloat16, gen)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    b_ms, b_by, flops = flash_bound(*fshape, elem_bytes=2)
+    rec = {"ms": cuda_ms(torch, lambda: FA.flash_attention(q, k, v, True, 0)),
+           "plain_ms": cuda_ms(torch, lambda: ref.flash_attention(
+               qt, kt, vt, True, 0)),
+           "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True, enable_gqa=True)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"time flash_attention {fshape} bf16 ({flops:.4g} flops): "
+        f"{json.dumps(rec)}")
     del q, k, v, qt, kt, vt
     sshape = SSD_SHAPES[-1]
     xdt, a, Bm, Cm = ssd_operands(torch, sshape, torch.float32, gen)
@@ -990,8 +1082,11 @@ def main():
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
     for rec in build.build_all():
+        usage = ", ".join(f"{n} {r} registers" + (f" {sp} B spilled" if sp
+                                                   else "")
+                          for n, r, sp in ptxas_usage(rec["log"]))
         log(f"build: {Path(rec['source']).name} built={rec['built']} "
-            f"in {rec['seconds']:.1f}s")
+            f"in {rec['seconds']:.1f}s; {usage}")
     log(f"build: {time.perf_counter() - t0:.1f}s")
 
     # -- 2. kernels against plain, then timed ---------------------------------
@@ -1022,7 +1117,8 @@ def main():
     d_bf16 = d64.to(torch.bfloat16)
     w96 = torch.rand(96, generator=gen)
     oracle = torch.tensordot(w96.double(), d_bf16.double(), 1)
-    got = WR.weighted_reduce(d_bf16.cuda(), w96.cuda()).double().cpu()
+    got = WR.weighted_reduce_leaves([d_bf16.cuda()],
+                                    w96.cuda())[0].double().cpu()
     worst = ((got - oracle).abs() / oracle.abs()).max().item()
     log(f"check weighted_reduce bf16 K=96 vs fp64: max rel err {worst} "
         f"(bar 2**-8 = {2.0 ** -8})")
@@ -1062,7 +1158,7 @@ def main():
             raise AssertionError("sparse_reduce differs from its plain "
                                  "version on duplicate indices")
     del vals, idx, oracle, got
-    sweep_kernel_checks(torch, FU, SR, ref, gen, resnet_shapes, errs)
+    sweep_kernel_checks(torch, FU, WR, SR, ref, gen, resnet_shapes, errs)
     # the KD kernels: forward within the reference's bar, backward within
     # 1e-5 of the gradient's largest magnitude (each row is reduced in
     # another order than the plain version's, so not bit for bit)
@@ -1171,7 +1267,7 @@ def main():
     expected = {"fused_axpy": 5 * 2 * H * groups + H * groups,
                 "local_update": H * n_leaves,
                 "server_update": 5 * n_leaves + n_leaves,
-                "weighted_reduce": 5 * n_leaves + 2 * n_leaves,
+                "weighted_reduce": 5 * groups + 2 * groups,
                 "threshold_select": 0, "qsgd": 0, "sparse_reduce": 0,
                 "kd_loss": 0, "kd_loss_bwd": 0, "flash_attention": 0,
                 "ssd_scan": 0}

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) kernel for causal GQA flash attention, forward only.
+// Hopper (sm_90a) kernels for causal GQA flash attention, forward only.
 //
 //   fedadc_flash_attention   o = softmax(q k^T / sqrt(D) + mask) v per
 //       (batch, head), head h reading kv head h / (H / Hk); the mask keeps
@@ -9,37 +9,80 @@
 //     through ops.flash_attention.
 //
 // Layout. q (B, L, H, D), k and v (B, L, Hk, D), o (B, L, H, D), all
-// contiguous: the model's own layout, read with strides, so the wrapper
-// moves no axis (the TPU kernel took (B, H, L, D) and its caller
-// transposed).
+// contiguous and 16-byte aligned: the model's own layout, read with
+// strides, so the wrapper moves no axis (the TPU kernel took (B, H, L, D)
+// and its caller transposed). D is 64 or 128.
 //
-// Bound. At zamba2-1.2b's prefill shape (B 4, H 32, L 2048, D 64) the work is
-// 4·D flops for every visible (query, key) pair of every (batch, head),
-// about 6.9e10, against 268 MB of q, k, v and o: 1.0 ms at 67 TFLOP/s of
-// fp32 on the CUDA cores, 0.08 ms for the bytes at 3.35 TB/s. So it is bound by
-// operations, and this kernel runs them on the CUDA cores in fp32; the
-// tensor cores (wgmma, bf16 in, fp32 sum) are the later step that moves the
-// roof 15-fold.
+// Bound. At zamba2-1.2b's prefill shape (B 4, H 32, L 2048, D 64) the work
+// is 4·D flops for every visible (query, key) pair of every (batch, head),
+// about 6.9e10, against 268 MB of fp32 q, k, v and o: 1.0 ms at 67 TFLOP/s
+// on the CUDA cores, 0.08 ms for the bytes at 3.35 TB/s; in bf16 0.07 ms at
+// 989 TFLOP/s on the tensor cores. Operations bound it in both types, so
+// each type takes the units that do its operations fastest.
 //
-// Design. One 256-thread block per (batch·head, 64-query tile). The TPU
-// grid walked the key blocks of a query block in order with the running
-// max, sum and accumulator in VMEM scratch; here the block loops over the
-// key tiles itself and keeps that state on chip: the max and sum of its 4
-// rows and a 4 x D/16 accumulator in each thread's registers, the q tile,
-// the k tile (transposed) and v tile and the probabilities in shared memory
-// (67 KB at D 64, 117 KB at D 128). Thread t owns rows 4·(t/16)..+3 and
-// columns t%16 + 16·j, so a row's 64 scores sit in 16 lanes of one warp and
-// its max and sum are two shuffle reductions. Key tiles that the causal
-// mask or the window hides entirely are skipped (the TPU kernel's pl.when),
-// so the causal case does about half the tiles and a window O(L·W). Keys
-// and queries past L (L 192 is not a multiple of 64) load as zeros, masked
-// keys weigh exactly 0, and rows past L are not written. D is 64 or 128.
+// Both kernels keep the TPU kernel's structure: a block owns a tile of
+// query rows of one (batch, head) and walks the key tiles that the causal
+// mask and the window leave visible (the TPU kernel's pl.when), with the
+// running max, the running sum and the output accumulator on chip; the
+// sequential TPU grid axis over key blocks is the loop inside the block.
+// Blocks are issued from the last query tile down, so the causal mask's
+// longest rows start first. Keys and queries past L (L 192 is no multiple
+// of a tile) load as zeros, masked keys weigh exactly 0, and rows past L
+// are not written. K and V tiles are copied asynchronously into a ring of
+// stages, so that tile j+1 arrives while tile j is computed.
 //
-// Inputs fp32 or bf16 (q, k, v one type), arithmetic and accumulation
-// fp32, o written in the inputs' type. Exact expf and division, no
-// fast-math intrinsics. Launches on the given stream, does not synchronise,
-// returns cudaGetLastError().
+// bf16: the tensor cores (flash_bf16). Both products are wgmma with bf16
+// operands and fp32 accumulators: S = Q·K^T with Q and K from shared
+// memory, and O += P·V with P from registers and V from shared memory in
+// its natural keys x D layout, read MN-major (the transpose bit that 16-bit
+// types allow), so no transposed copy is made. Tiles sit in shared memory
+// in wgmma's 128-byte swizzle (64 bf16 a row of a panel, 16-byte chunk c of
+// row r at chunk c ^ (r % 8)), one panel per 64 columns of D. A block is
+// 128 query rows and three warpgroups: a producer and two consumers of 64
+// rows each; key tiles of 128 (D 64) or 64 (D 128) keys, so the S
+// accumulator is 64 or 32 registers a thread and the O accumulator 32 or
+// 64.
+//   The producer's first thread issues TMA loads (4-D tensor maps over the
+//   model's (B, L, heads, D) layout, which write the swizzle and zero-fill
+//   rows past L) into a ring of kStages stages with a full and an empty
+//   mbarrier each; the consumers wait on full, release on empty, and never
+//   wait on each other. Consumers kept in step by __syncthreads around
+//   cp.async copies instead each wait for the slowest at every tile, and
+//   the products run at about a fifth of the card's rate, whatever the
+//   softmax costs. The producer gives its registers to the consumers
+//   (setmaxnreg 24 and 240).
+//   Within a consumer the next tile's S is issued before this tile's
+//   softmax, so that the tensor cores compute it while the CUDA cores
+//   exponentiate; the products of this tile (P·V) follow.
+// Softmax stays in fp32 registers: the running max (in raw score units)
+// and sum of the thread's two rows (its partial sum, reduced over the row's
+// four lanes once at the end) and one rescale of the accumulator a tile;
+// per score one FFMA and one ex2.approx (2 ulp, subnormal results flushed
+// to 0), masks only on the tiles that hold a masked pair. Numerics: the
+// bf16·bf16 products are exact and sum in fp32; the scale is applied to
+// the fp32 scores with log2(e) folded in, p = 2^(s·scale·log2(e) -
+// m·scale·log2(e)) (the reference scales q first and takes exp: at D 64 the
+// scale is a power of two, at D 128 one more fp32 rounding); P is rounded
+// to bf16 before P·V, its fp32 values make the sum. Within the reference's
+// bf16 bar (2e-2 abs + rel).
+//
+// fp32: the CUDA cores (flash_f32), since serving's contract keeps TF32
+// off. 256 threads; 128 query rows a block at D 64 (64 at D 128, where 128
+// rows do not fit in shared memory) against 64-key tiles. Thread (r, c) of
+// the 16 x 16 grid owns rows r + 16 i and keys c + 16 j of the score tile
+// (an 8 x 4 tile at D 64, 4 x 4 at D 128) and columns 4c + 64 jj of the
+// output; the q and k tiles are read four floats a load (float4 along D),
+// the probabilities and v likewise along the keys, so each load feeds 4 to
+// 8 FMAs. K and V tiles are double-buffered by cp.async (16 bytes a thread
+// and copy). The row's max and sum are shuffles over its 16 lanes. q is
+// scaled before the product, as in the reference, by scale·log2(e) (one
+// more fp32 rounding), so that p = exp2f(s - m) (2 ulp) stands for the
+// reference's exp; exact division, no fast-math intrinsics.
+//
+// Launches on the given stream, does not synchronise, returns
+// cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,132 +90,195 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;             // query rows a block
-constexpr int kBK = 64;             // keys a tile
-constexpr int kKS = kBK + 1;        // padded row of the transposed k tile
 constexpr float kNegInf = -1e30f;   // the reference's masked score
+constexpr float kLog2e = 1.4426950408889634f;
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
-__device__ __forceinline__ float load(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void store(float* p, int64_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
+
+// 16 bytes from global to shared memory, asynchronously; `bytes` 0 fills
+// the destination with zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The key tiles [begin, end] that any query row of [q0, q0 + rows) can see.
+__device__ __forceinline__ void key_tiles(int q0, int rows, int L, int bk,
+                                          int causal, int window, int* begin,
+                                          int* end) {
+  const int q_last = min(q0 + rows, L) - 1;
+  *end = causal ? q_last / bk : (L - 1) / bk;
+  *begin = (window > 0 ? max(q0 - window + 1, 0) : 0) / bk;
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int L, int causal,
+                                        int window) {
+  return kpos < L && (!causal || kpos <= qpos) &&
+         (window <= 0 || kpos > qpos - window);
+}
+
+// ---------------------------------------------------------------------------
+// fp32 on the CUDA cores
+// ---------------------------------------------------------------------------
+namespace f32 {
+
+constexpr int kThreads = 256;
+constexpr int kBK = 64;                 // keys a tile
+
+template <int D>
+struct Cfg {
+  static constexpr int kBQ = D == 64 ? 128 : 64;   // query rows a block
+  static constexpr int kRM = kBQ / 16;             // score rows a thread
+  static constexpr int kQS = D + 4;                // row stride of q, k tiles
+  static constexpr int kPS = kBK + 4;              // row stride of p
+  static constexpr int kCG = D / 64;               // output float4s a row
+  static constexpr int kFloats =
+      kBQ * kQS + 2 * kBK * kQS + 2 * kBK * D + kBQ * kPS;
+  static constexpr size_t kSmem = sizeof(float) * kFloats;
+};
+
+// Copy keys [k0, k0 + kBK) of one kv head into the tile (row stride ld).
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* g,
+                                          int64_t row, int k0, int L) {
+  constexpr int kPerRow = D / 4;
+#pragma unroll
+  for (int e = threadIdx.x; e < kBK * kPerRow; e += kThreads) {
+    const int key = e / kPerRow, c4 = e % kPerRow, kpos = k0 + key;
+    const bool in = kpos < L;
+    cp_async16(smem_u32(dst + key * ld + 4 * c4),
+               g + (in ? kpos * row + 4 * c4 : 0), in ? 16 : 0);
+  }
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
-  // q tile (row stride D + 4), transposed k tile, v tile, probabilities
-  return sizeof(float) * (kBQ * (D + 4) + D * kKS + kBK * D + kBQ * kKS);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int L, int H, int Hk,
-          int causal, int window, float scale) {
-  constexpr int kQS = D + 4;
-  constexpr int kDC = D / 16;       // output columns a thread owns
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [kBQ][kQS], pre-scaled
-  float* Kt = Qs + kBQ * kQS;       // [D][kKS]
-  float* Vs = Kt + D * kKS;         // [kBK][D]
-  float* Ps = Vs + kBK * D;         // [kBQ][kKS]
+__global__ void __launch_bounds__(kThreads, 1)
+flash_f32(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o, int L, int H,
+          int Hk, int causal, int window, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int kBQ = C::kBQ, kRM = C::kRM, kQS = C::kQS, kPS = C::kPS;
+  constexpr int kCG = C::kCG;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [kBQ][kQS], scaled
+  float* Ks = Qs + kBQ * kQS;                     // [2][kBK][kQS]
+  float* Vs = Ks + 2 * kBK * kQS;                 // [2][kBK][D]
+  float* Ps = Vs + 2 * kBK * D;                   // [kBQ][kPS]
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hk);
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int tid = threadIdx.x;
-  const int r4 = (tid / 16) * 4;    // first of the thread's 4 rows
-  const int c = tid % 16;           // columns c + 16 j
+  const int r = tid / 16, c = tid % 16;
 
   const int64_t q_row = (int64_t)H * D, k_row = (int64_t)Hk * D;
-  const T* qb = q + ((int64_t)b * L * H + h) * D;
-  const T* kb = k + ((int64_t)b * L * Hk + hk) * D;
-  const T* vb = v + ((int64_t)b * L * Hk + hk) * D;
-  T* ob = o + ((int64_t)b * L * H + h) * D;
+  const float* qb = q + ((int64_t)b * L * H + h) * D;
+  const float* kb = k + ((int64_t)b * L * Hk + hk) * D;
+  const float* vb = v + ((int64_t)b * L * Hk + hk) * D;
+  float* ob = o + ((int64_t)b * L * H + h) * D;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int row = i / D, d = i % D, qpos = q0 + row;
-    Qs[row * kQS + d] = qpos < L ? load(qb, qpos * q_row + d) * scale : 0.f;
+  int kt_begin, kt_end;
+  key_tiles(q0, kBQ, L, kBK, causal, window, &kt_begin, &kt_end);
+  load_tile<D>(Ks, kQS, kb, k_row, kt_begin * kBK, L);
+  load_tile<D>(Vs, D, vb, k_row, kt_begin * kBK, L);
+  cp_async_commit();
+  for (int e = tid; e < kBQ * (D / 4); e += kThreads) {
+    const int row = e / (D / 4), c4 = e % (D / 4), qpos = q0 + row;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (qpos < L)
+      x = *reinterpret_cast<const float4*>(qb + qpos * q_row + 4 * c4);
+    x.x *= scale_log2; x.y *= scale_log2; x.z *= scale_log2;
+    x.w *= scale_log2;
+    *reinterpret_cast<float4*>(Qs + row * kQS + 4 * c4) = x;
   }
 
-  float m[4], l[4], acc[4][kDC];
+  float m[kRM], l[kRM], acc[kRM][4 * kCG];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kRM; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kDC; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4 * kCG; ++j) acc[i][j] = 0.f;
   }
 
-  // the key tiles any row of this block can see
-  const int q_last = min(q0 + kBQ, L) - 1;
-  const int kt_end = causal ? q_last / kBK : (L - 1) / kBK;
-  const int first_key = window > 0 ? max(q0 - window + 1, 0) : 0;
-  const int kt_begin = first_key / kBK;
-
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
     const int k0 = kt * kBK;
-    __syncthreads();                // the last tile's Kt, Vs, Ps are read
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int key = i / D, d = i % D, kpos = k0 + key;
-      float kv = 0.f, vv = 0.f;
-      if (kpos < L) {
-        kv = load(kb, kpos * k_row + d);
-        vv = load(vb, kpos * k_row + d);
-      }
-      Kt[d * kKS + key] = kv;
-      Vs[key * D + d] = vv;
-    }
+    // tile kt has landed, and every thread is done with tile kt - 1 (its
+    // stage and the probabilities)
+    cp_async_wait_all();
     __syncthreads();
+    if (kt < kt_end) {
+      load_tile<D>(Ks + (st ^ 1) * kBK * kQS, kQS, kb, k_row, k0 + kBK, L);
+      load_tile<D>(Vs + (st ^ 1) * kBK * D, D, vb, k_row, k0 + kBK, L);
+    }
+    cp_async_commit();
+    const float* Kt = Ks + st * kBK * kQS;
+    const float* Vt = Vs + st * kBK * D;
+    // whether any (row, key) of the tile is masked
+    const int q_hi = min(q0 + kBQ, L) - 1;
+    const bool edge = (causal && k0 + kBK - 1 > q0) || k0 + kBK > L ||
+                      (window > 0 && k0 <= q_hi - window);
 
-    float s[4][4];
+    float s[kRM][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kRM; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kk[4];
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qa[kRM], kk[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(r4 + i) * kQS + d];
+      for (int i = 0; i < kRM; ++i)
+        qa[i] = *reinterpret_cast<const float4*>(Qs + (r + 16 * i) * kQS + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = Kt[d * kKS + c + 16 * j];
+      for (int j = 0; j < 4; ++j)
+        kk[j] = *reinterpret_cast<const float4*>(Kt + (c + 16 * j) * kQS + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kRM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kk[j], s[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qa[i].x, kk[j].x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, kk[j].y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, kk[j].z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, kk[j].w, s[i][j]);
+        }
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + r4 + i;
+    for (int i = 0; i < kRM; ++i) {
+      const int qpos = q0 + r + 16 * i;
       bool ok[4];
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + c + 16 * j;
-        ok[j] = kpos < L && (!causal || kpos <= qpos) &&
-                (window <= 0 || kpos > qpos - window);
+        ok[j] = !edge || visible(qpos, k0 + c + 16 * j, L, causal, window);
         if (ok[j]) mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
       for (int off = 8; off; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
+      const float corr = exp2f(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        const float p = ok[j] ? exp2f(s[i][j] - m_new) : 0.f;
         rs += p;
-        Ps[(r4 + i) * kKS + c + 16 * j] = p;
+        Ps[(r + 16 * i) * kPS + c + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off; off >>= 1)
@@ -180,51 +286,564 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       l[i] = l[i] * corr + rs;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < kDC; ++j) acc[i][j] *= corr;
+      for (int j = 0; j < 4 * kCG; ++j) acc[i][j] *= corr;
     }
-    __syncthreads();
+    __syncthreads();   // the probabilities are written
 
 #pragma unroll 4
-    for (int key = 0; key < kBK; ++key) {
-      float pv[4], vv[kDC];
+    for (int key = 0; key < kBK; key += 4) {
+      float4 pv[kRM];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(r4 + i) * kKS + key];
+      for (int i = 0; i < kRM; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (r + 16 * i) * kPS + key);
 #pragma unroll
-      for (int j = 0; j < kDC; ++j) vv[j] = Vs[key * D + c + 16 * j];
+      for (int t = 0; t < 4; ++t) {
+        float4 vv[kCG];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int g = 0; g < kCG; ++g)
+          vv[g] = *reinterpret_cast<const float4*>(Vt + (key + t) * D +
+                                                   64 * g + 4 * c);
 #pragma unroll
-        for (int j = 0; j < kDC; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int i = 0; i < kRM; ++i) {
+          const float p = t == 0 ? pv[i].x : t == 1 ? pv[i].y
+                        : t == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int g = 0; g < kCG; ++g) {
+            acc[i][4 * g + 0] = fmaf(p, vv[g].x, acc[i][4 * g + 0]);
+            acc[i][4 * g + 1] = fmaf(p, vv[g].y, acc[i][4 * g + 1]);
+            acc[i][4 * g + 2] = fmaf(p, vv[g].z, acc[i][4 * g + 2]);
+            acc[i][4 * g + 3] = fmaf(p, vv[g].w, acc[i][4 * g + 3]);
+          }
+        }
+      }
     }
   }
+  cp_async_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + r4 + i;
+  for (int i = 0; i < kRM; ++i) {
+    const int qpos = q0 + r + 16 * i;
     if (qpos >= L) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < kDC; ++j)
-      store(ob, qpos * q_row + c + 16 * j, acc[i][j] / denom);
+    for (int g = 0; g < kCG; ++g) {
+      float4 y;
+      y.x = acc[i][4 * g + 0] / denom;
+      y.y = acc[i][4 * g + 1] / denom;
+      y.z = acc[i][4 * g + 2] / denom;
+      y.w = acc[i][4 * g + 3] / denom;
+      *reinterpret_cast<float4*>(ob + qpos * q_row + 64 * g + 4 * c) = y;
+    }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int64_t B, int64_t L, int64_t H, int64_t Hk, int causal,
                    int window, float scale, cudaStream_t st) {
-  constexpr size_t bytes = smem_bytes<D>();
+  constexpr size_t bytes = Cfg<D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((L + kBQ - 1) / kBQ), (unsigned)(B * H));
-  flash_fwd<T, D><<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), (int)L, (int)H, (int)Hk,
-      causal, window, scale);
+  dim3 grid((unsigned)((L + Cfg<D>::kBQ - 1) / Cfg<D>::kBQ), (unsigned)(B * H));
+  flash_f32<D><<<grid, kThreads, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), (int)L, (int)H,
+      (int)Hk, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
+
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kBQ = 128;                // query rows a block: 2 warpgroups
+constexpr int kConsumers = 2;           // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
+constexpr int kStages = 3;              // K/V tiles in flight
+// a wait that spins this long has lost its producer: trap, do not hang
+constexpr long long kSpinLimit = 1ll << 22;
+
+template <int D>
+struct Cfg {
+  static constexpr int kBK = D == 64 ? 128 : 64;   // keys a tile
+  static constexpr int kPanels = D / 64;           // 128-byte panels a row
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kTileBytes = kBK * D * 2;   // one K or V tile
+  // 1024 bytes of slack to align the swizzled tiles to 1024; then Q, the
+  // stages (K, V) and the barriers (full and empty a stage, Q's)
+  static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
+  static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+};
+
+// -- mbarriers and the tensor memory accelerator ----------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (long long i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == kSpinLimit) asm volatile("trap;");
+  }
+}
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// -- wgmma --------------------------------------------------------------------
+// The wgmma shared-memory descriptor of a 128-byte-swizzled operand at
+// `addr`: lbo and sbo in bytes, layout 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+// K-major (the k axis contiguous, 64 a row): 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
+  return desc(addr, 16, 1024);
+}
+// MN-major (the n axis contiguous, 64 a row): 8-row groups of k 1024 bytes
+// apart; lbo, the next 64 columns of n, is not used at n = 64.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, uint32_t panel) {
+  return desc(addr, panel, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Orders the compiler's use of accumulator registers after the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x by the special-function unit (2 ulp, subnormal results flushed)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (+)= A·B, m64n64k16, A and B from shared memory (K-major, 128-byte
+// swizzle); d is overwritten unless `accumulate`.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A·B, m64n128k16, A and B from shared memory (K-major, 128-byte
+// swizzle); d is overwritten unless `accumulate`.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A·B, m64n64k16, A from registers (bf16 pairs), B from shared
+// memory MN-major (N contiguous: the transpose bit), 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// S = Q·K^T of one tile into `sc` (issued, not waited): D in steps of 16,
+// step kk 32 bytes into panel kk/4.
+template <int D>
+__device__ __forceinline__ void issue_s(float (&sc)[Cfg<D>::kBK / 2],
+                                        uint32_t sQw, uint32_t sK) {
+  constexpr int kBK = Cfg<D>::kBK;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(sc, kmajor(sQw + (kk / 4) * (kBQ * 128) + (kk % 4) * 32),
+             kmajor(sK + (kk / 4) * (kBK * 128) + (kk % 4) * 32), kk);
+  wgmma_commit();
+}
+
+// A consumer warpgroup's rows and running softmax state.  This thread
+// holds rows row0 and row0 + 8 (the wgmma accumulator's layout: element j
+// is row row0 + 8·((j/2)%2), column 8·(j/4) + col0 + j%2 of the tile).
+template <int D>
+struct Rows {
+  float acc[Cfg<D>::kPanels][32];   // O, unnormalised
+  float m[2], l[2];                 // running max (raw score units), sum
+  int row0, col0, r_lo, r_hi;
+};
+
+// One key tile: the softmax of its scores `sc` (already waited), O += P·V,
+// and the release of its stage.  With kNext, the next tile's S is issued
+// into `sn` first, so that the tensor cores compute it while this tile's
+// softmax runs on the CUDA cores (the loop's two products overlap within
+// the warpgroup).
+template <int D, bool kNext>
+__device__ __forceinline__ void tile_step(
+    Rows<D>& w, float (&sc)[Cfg<D>::kBK / 2], float (&sn)[Cfg<D>::kBK / 2],
+    uint32_t sQw, uint32_t sKV, uint32_t full, uint32_t empty, int i, int k0,
+    int L, int causal, int window, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int kBK = C::kBK, kPanels = C::kPanels, kS = kBK / 2;
+  const int s = i % kStages;
+  if (kNext) {
+    const int s1 = (i + 1) % kStages;
+    mbar_wait(full + 8 * s1, ((i + 1) / kStages) & 1);
+    wgmma_fence();
+    issue_s<D>(sn, sQw, sKV + s1 * 2 * C::kTileBytes);
+  }
+
+  // masked scores are -inf; the rows' maxima in raw score units
+  if ((causal && k0 + kBK - 1 > w.r_lo) || k0 + kBK > L ||
+      (window > 0 && k0 <= w.r_hi - window)) {
+#pragma unroll
+    for (int j = 0; j < kS; ++j)
+      if (!visible(w.row0 + 8 * ((j / 2) % 2),
+                   k0 + 8 * (j / 4) + w.col0 + j % 2, L, causal, window))
+        sc[j] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kS; ++j) mx[(j / 2) % 2] = fmaxf(mx[(j / 2) % 2], sc[j]);
+  float corr[2], ms[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+    const float m_new = fmaxf(w.m[hf], mx[hf]);
+    // a row that has seen no visible key yet keeps 0 as its offset, so
+    // that its -inf scores give exactly 0 and never inf - inf
+    ms[hf] = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+    corr[hf] = ex2(fmaf(w.m[hf], scale_log2, -ms[hf]));
+    w.m[hf] = m_new;
+    w.l[hf] *= corr[hf];
+  }
+  // p = 2^(s·scale·log2(e) - m·scale·log2(e)) = e^((s - m)/sqrt(D))
+#pragma unroll
+  for (int j = 0; j < kS; ++j) {
+    const int hf = (j / 2) % 2;
+    sc[j] = ex2(fmaf(sc[j], scale_log2, -ms[hf]));
+    w.l[hf] += sc[j];
+  }
+#pragma unroll
+  for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) w.acc[p][j] *= corr[(j / 2) % 2];
+
+  // P in bf16 as the A operand: the accumulator's 16 columns of step kk
+  // are exactly the A fragment of a k16 step
+  uint32_t pa[kBK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+  // O += P·V over the keys in steps of 16 (2048 bytes of V), one n64
+  // product per panel of D
+  const uint32_t sV = sKV + s * 2 * C::kTileBytes + C::kTileBytes;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+      wgmma_rs_mn(w.acc[p], pa[kk],
+                  mnmajor(sV + p * (kBK * 128) + kk * 2048, kBK * 128));
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int p = 0; p < kPanels; ++p) fence_regs(w.acc[p]);
+  if (kNext) fence_regs(sn);
+  mbar_arrive(empty + 8 * s);   // this thread is done with the stage
+}
+
+// Warp-specialised: warpgroup 2 is the producer, whose first thread issues
+// the TMA loads (Q once, then each K/V tile into the next stage of a ring
+// of kStages once both consumers have released it) and whose registers go
+// to the consumers (setmaxnreg); warpgroups 0 and 1 are the consumers, each
+// on its 64 query rows, and never wait on each other.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bf16(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv,
+           __nv_bfloat16* __restrict__ o, int L, int H, int Hk, int causal,
+           int window, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int kBK = C::kBK, kPanels = C::kPanels;
+  constexpr int kS = kBK / 2;           // score registers a thread
+  extern __shared__ uint8_t smem[];
+  const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sKV = sQ + C::kQBytes;  // stage s: K, then V
+  const uint32_t full = sQ + C::kBarOffset, empty = full + 8 * kStages;
+  const uint32_t qbar = empty + 8 * kStages;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hk);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  int kt_begin, kt_end;
+  key_tiles(q0, kBQ, L, kBK, causal, window, &kt_begin, &kt_end);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * kConsumers);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * kConsumers) {
+    // -- the producer ------------------------------------------------------
+    // its registers go to the consumers: 2·128·240 + 128·24 <= 65536
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x != 128 * kConsumers) return;
+    mbar_expect_tx(qbar, C::kQBytes);
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+      tma_load(sQ + p * (kBQ * 128), &tq, qbar, 64 * p, h, q0, b);
+    for (int kt = kt_begin, i = 0; kt <= kt_end; ++kt, ++i) {
+      const int s = i % kStages, use = i / kStages;
+      if (use) mbar_wait(empty + 8 * s, (use - 1) & 1);
+      const uint32_t sK = sKV + s * 2 * C::kTileBytes;
+      mbar_expect_tx(full + 8 * s, 2 * C::kTileBytes);
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load(sK + p * (kBK * 128), &tk, full + 8 * s, 64 * p, hk,
+                 kt * kBK, b);
+        tma_load(sK + C::kTileBytes + p * (kBK * 128), &tv, full + 8 * s,
+                 64 * p, hk, kt * kBK, b);
+      }
+    }
+    return;
+  }
+
+  // -- a consumer warpgroup: rows [r_lo, r_lo + 64) ------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  Rows<D> w;
+  w.r_lo = q0 + 64 * wg;
+  w.r_hi = min(w.r_lo + 63, L - 1);
+  w.row0 = w.r_lo + 16 * warp + lane / 4;
+  w.col0 = 2 * (lane % 4);
+#pragma unroll
+  for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) w.acc[p][j] = 0.f;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    w.m[hf] = -INFINITY;
+    w.l[hf] = 0.f;
+  }
+  const uint32_t sQw = sQ + wg * 64 * 128;
+  mbar_wait(qbar, 0);
+  // a tile that only part of the block sees is masked, not skipped, so
+  // that no warpgroup's products sit on a divergent path
+  const int n_tiles = kt_end - kt_begin + 1;
+  float sc[kS];
+  mbar_wait(full, 0);
+  wgmma_fence();
+  issue_s<D>(sc, sQw, sKV);
+  wgmma_wait_all();
+  fence_regs(sc);
+  int i = 0;
+  for (; i + 1 < n_tiles; ++i) {
+    float sn[kS];
+    tile_step<D, true>(w, sc, sn, sQw, sKV, full, empty, i,
+                       (kt_begin + i) * kBK, L, causal, window, scale_log2);
+#pragma unroll
+    for (int j = 0; j < kS; ++j) sc[j] = sn[j];
+  }
+  tile_step<D, false>(w, sc, sc, sQw, sKV, full, empty, i,
+                      (kt_begin + i) * kBK, L, causal, window, scale_log2);
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    w.l[hf] += __shfl_xor_sync(0xffffffffu, w.l[hf], 1);
+    w.l[hf] += __shfl_xor_sync(0xffffffffu, w.l[hf], 2);
+  }
+  const int64_t q_row = (int64_t)H * D;
+  __nv_bfloat16* ob = o + ((int64_t)b * L * H + h) * D;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qpos = w.row0 + 8 * hf;
+    if (qpos >= L) continue;
+    const float inv = 1.f / fmaxf(w.l[hf], 1e-30f);
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+#pragma unroll
+      for (int j = 2 * hf; j < 32; j += 4) {
+        const int col = 64 * p + 8 * (j / 4) + w.col0;
+        *reinterpret_cast<__nv_bfloat162*>(ob + qpos * q_row + col) =
+            __floats2bfloat162_rn(w.acc[p][j] * inv, w.acc[p][j + 1] * inv);
+      }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime, so that the
+// library needs no link to libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a (B, L, heads, D) bf16 tensor whose box is `rows` positions
+// of one head and 64 of its D columns (128 bytes, 128-byte swizzle); rows
+// past L read as zeros.
+bool head_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t L,
+              int64_t heads, int64_t D, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(D * 2),
+                                 (cuuint64_t)(heads * D * 2),
+                                 (cuuint64_t)(L * heads * D * 2)};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int64_t B, int64_t L, int64_t H, int64_t Hk, int causal,
+                   int window, float scale, cudaStream_t st) {
+  constexpr size_t bytes = Cfg<D>::kSmem;
+  if (!encode_tiled()) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!head_map(&tq, q, B, L, H, D, kBQ) ||
+      !head_map(&tk, k, B, L, Hk, D, Cfg<D>::kBK) ||
+      !head_map(&tv, v, B, L, Hk, D, Cfg<D>::kBK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)((L + kBQ - 1) / kBQ), (unsigned)(B * H));
+  flash_bf16<D><<<grid, kThreads, bytes, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), (int)L, (int)H, (int)Hk,
+      causal, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -235,18 +854,21 @@ int fedadc_flash_attention(const void* q, const void* k, const void* v,
                            int64_t Hk, int64_t D, int causal, int window,
                            float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return dtype == kBF16
-               ? launch<__nv_bfloat16, 64>(q, k, v, o, B, L, H, Hk, causal,
-                                           window, scale, st)
-               : launch<float, 64>(q, k, v, o, B, L, H, Hk, causal, window,
-                                   scale, st);
-  if (D == 128)
-    return dtype == kBF16
-               ? launch<__nv_bfloat16, 128>(q, k, v, o, B, L, H, Hk, causal,
-                                            window, scale, st)
-               : launch<float, 128>(q, k, v, o, B, L, H, Hk, causal, window,
-                                    scale, st);
+  if (dtype == kBF16) {
+    if (D == 64)
+      return tc::launch<64>(q, k, v, o, B, L, H, Hk, causal, window, scale,
+                            st);
+    if (D == 128)
+      return tc::launch<128>(q, k, v, o, B, L, H, Hk, causal, window, scale,
+                             st);
+  } else if (dtype == kF32) {
+    if (D == 64)
+      return f32::launch<64>(q, k, v, o, B, L, H, Hk, causal, window, scale,
+                             st);
+    if (D == 128)
+      return f32::launch<128>(q, k, v, o, B, L, H, Hk, causal, window, scale,
+                              st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

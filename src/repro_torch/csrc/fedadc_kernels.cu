@@ -12,7 +12,8 @@
 //   fedadc_server_update  m' = delta_bar + gamma*m ; theta' = theta - alpha_eta*m'
 //       replaces fedadc_update.py:server_update_2d (_server_update_kernel)
 //       20 B/element with fp32 theta (m, delta_bar and m' are always fp32)
-//   fedadc_weighted_reduce out = sum_k w[k]*d[k]
+//   fedadc_weighted_reduce_leaves  out_l = sum_k w[k]*d_l[k] for every leaf l
+//       of a table
 //       replaces weighted_reduce.py:weighted_reduce_2d (_weighted_reduce_kernel)
 //       4(K+1) B/element in fp32, 2(K+1) B in bf16
 //
@@ -32,14 +33,18 @@
 // PyTorch versions (repro_torch/kernels/ref.py) bit for bit.
 //
 // The axpy is the local step of every strategy (SGD, and FedADC's nesterov
-// half-step), so it runs 2·H times a round over every leaf of the model.
-// At the paper CNN's size a leaf is a few microseconds of device time, less
-// than the host's cost of one launch, so it takes a leaf table
+// half-step), so it runs 2·H times a round over every leaf of the model;
+// the weighted reduce is the server aggregate, once a round over every
+// leaf.  At the paper CNN's size a leaf is a few microseconds of device
+// time, less than the host's cost of one launch, so both take a leaf table
 // (leaf_table.cuh): one launch covers every leaf of a sweep, each block a
-// tile of kAxpyTile elements of one leaf.  Where the leaf's three pointers
-// are 16-byte aligned a thread moves 16 bytes a load (4 fp32 or 8 bf16
-// elements), loading all its vectors before it computes; the tile's ragged
-// end, and a leaf that is not aligned, take the scalar path.
+// tile of one leaf.  Where the leaf's pointers are 16-byte aligned a
+// thread moves 16 bytes a load (4 fp32 or 8 bf16 elements); the tile's
+// ragged end, and a leaf that is not aligned, take the scalar path.  The
+// axpy loads all its vectors before it computes; the reduce walks the K
+// clients in order for its vector, K unrolled by 8 so that eight clients'
+// loads are in flight at once (each element's sum still takes them one
+// after another).
 //
 // Each entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() so a refused launch is reported to the caller.
@@ -184,17 +189,52 @@ __global__ void server_update_kernel(const T* __restrict__ theta,
   }
 }
 
+// out_l = Σ_c w[c]·d_l[c] over a leaf table: a leaf's stack d_l is (K, n)
+// (table field a), its output n elements (out); b is unused.  Each element
+// sums the clients in order in one fp32 register and rounds once on
+// write: the arithmetic of the plain version, bit for bit.  A block
+// reduces kReduceBytes of output, a thread one 16-byte vector of it: the
+// output is K times smaller than the stack it reads, so tiles of the axpy's
+// size would leave too few blocks to fill the card in whole waves.
+constexpr int kReduceBytes = kThreads * 16;
+
 template <typename T>
-__global__ void weighted_reduce_kernel(const T* __restrict__ d,
-                                       const float* __restrict__ w,
-                                       T* __restrict__ out, int64_t k,
-                                       int64_t n) {
-  FOR_EACH_ELEMENT(i, n) {
-    float acc = 0.0f;
-    for (int64_t c = 0; c < k; ++c) {
-      acc = __fadd_rn(acc, __fmul_rn(w[c], load(d, c * n + i)));
+__global__ void __launch_bounds__(kThreads)
+reduce_leaves_kernel(const __grid_constant__ leaf_table::AxpyTable t,
+                     const float* __restrict__ w, int k) {
+  using V = Vec16<T>;
+  constexpr int64_t kTile = kReduceBytes / sizeof(T);
+  const int leaf = leaf_table::find_leaf(t.end, t.n_leaves, blockIdx.x);
+  const int64_t n = t.n[leaf];
+  const int64_t lo = (blockIdx.x - leaf_table::start_of(t.end, leaf)) * kTile;
+  const int64_t hi = min(n, lo + kTile);
+  const T* d = static_cast<const T*>(t.a[leaf]);
+  T* out = static_cast<T*>(t.out[leaf]);
+  // every client's row starts 16-byte aligned only if n is a whole number
+  // of vectors
+  if (aligned16(d) && aligned16(out) && n % V::kN == 0) {
+    const int64_t i = lo + (int64_t)threadIdx.x * V::kN;
+    if (i >= hi) return;
+    float acc[V::kN];
+#pragma unroll
+    for (int j = 0; j < V::kN; ++j) acc[j] = 0.0f;
+#pragma unroll 8
+    for (int c = 0; c < k; ++c) {
+      float f[V::kN];
+      V::unpack(__ldg(reinterpret_cast<const uint4*>(d + c * n + i)), f);
+      const float wc = __ldg(w + c);
+#pragma unroll
+      for (int j = 0; j < V::kN; ++j)
+        acc[j] = __fadd_rn(acc[j], __fmul_rn(wc, f[j]));
     }
-    store(out, i, acc);
+    *reinterpret_cast<uint4*>(out + i) = V::pack(acc);
+  } else {
+    for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
+      float acc = 0.0f;
+      for (int c = 0; c < k; ++c)
+        acc = __fadd_rn(acc, __fmul_rn(__ldg(w + c), load(d, c * n + i)));
+      store(out, i, acc);
+    }
   }
 }
 
@@ -207,11 +247,11 @@ inline unsigned blocks_for(int64_t n) {
 
 extern "C" {
 
-// rows: n_leaves host rows of leaf_table::kAxpyCols int64 (x, y, out, n,
-// end of the leaf's kAxpyTile blocks); one launch per kMaxLeaves leaves
-// that hold any element.
-int fedadc_fused_axpy_leaves(const int64_t* rows, int64_t n_leaves, float a,
-                             int dtype, void* stream) {
+// rows: n_leaves host rows of leaf_table::kAxpyCols int64 (x, y, the
+// output's byte offset in `out`, n, end of the leaf's kAxpyTile blocks);
+// one launch per kMaxLeaves leaves that hold any element.
+int fedadc_fused_axpy_leaves(const int64_t* rows, int64_t n_leaves,
+                             void* out, float a, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   for (int64_t g = 0; g < n_leaves; g += leaf_table::kMaxLeaves) {
@@ -219,7 +259,7 @@ int fedadc_fused_axpy_leaves(const int64_t* rows, int64_t n_leaves, float a,
                             ? n_leaves - g : leaf_table::kMaxLeaves);
     leaf_table::AxpyTable t;
     if (!leaf_table::make_axpy_table(rows + g * leaf_table::kAxpyCols, n,
-                                     kAxpyTile, &t))
+                                     kAxpyTile, out, &t))
       return (int)cudaErrorInvalidValue;
     const int64_t blocks = t.end[n - 1];
     if (blocks == 0) continue;
@@ -272,17 +312,36 @@ int fedadc_server_update(const void* theta, const void* m,
   return (int)cudaGetLastError();
 }
 
-int fedadc_weighted_reduce(const void* d, const void* w, void* out, int64_t k,
-                           int64_t n, int dtype, void* stream) {
+// rows: n_leaves host rows of leaf_table::kAxpyCols int64 (stack, unused,
+// the output's byte offset in `out`, n, end of the leaf's blocks of
+// kReduceBytes of output); w: K fp32 weights on the card.  One launch per
+// kMaxLeaves leaves that hold any element.
+int fedadc_weighted_reduce_leaves(const int64_t* rows, int64_t n_leaves,
+                                  void* out, const void* w, int64_t k,
+                                  int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kF32) {
-    weighted_reduce_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
-        (const float*)d, (const float*)w, (float*)out, k, n);
-  } else if (dtype == kBF16) {
-    weighted_reduce_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)d, (const float*)w, (__nv_bfloat16*)out, k, n);
-  } else {
+  if ((dtype != kF32 && dtype != kBF16) || k < 0 || k > INT32_MAX)
     return (int)cudaErrorInvalidValue;
+  for (int64_t g = 0; g < n_leaves; g += leaf_table::kMaxLeaves) {
+    const int n = (int)(n_leaves - g < leaf_table::kMaxLeaves
+                            ? n_leaves - g : leaf_table::kMaxLeaves);
+    leaf_table::AxpyTable t;
+    const int64_t tile = kReduceBytes / (dtype == kF32 ? 4 : 2);
+    if (!leaf_table::make_axpy_table(rows + g * leaf_table::kAxpyCols, n,
+                                     tile, out, &t))
+      return (int)cudaErrorInvalidValue;
+    const int64_t blocks = t.end[n - 1];
+    if (blocks == 0) continue;
+    if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+    const float* wf = static_cast<const float*>(w);
+    if (dtype == kF32)
+      reduce_leaves_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
+          t, wf, (int)k);
+    else
+      reduce_leaves_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0,
+                                            s>>>(t, wf, (int)k);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,8 @@ namespace leaf_table {
 constexpr int kMaxLeaves = 64;
 
 // The elementwise table: two inputs, one output, n elements a leaf.
-// Host row: a, b, out, n, end of the leaf's blocks.
+// Host row: a, b, the output's byte offset in the sweep's buffer, n, end
+// of the leaf's blocks.
 constexpr int kAxpyCols = 5;
 struct AxpyTable {
   const void* a[kMaxLeaves];
@@ -77,11 +78,12 @@ __device__ __forceinline__ I start_of(const I* end, int leaf) {
 
 inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-// Build the table of rows [0, n) (n <= kMaxLeaves).  Returns false if a
-// row's end does not follow from its count and the kernel's unit: a
-// packer whose unit differs from the kernel's is refused, not trusted.
+// Build the table of rows [0, n) (n <= kMaxLeaves), each row's out field
+// a byte offset into the buffer `out`.  Returns false if a row's end does
+// not follow from its count and the kernel's unit: a packer whose unit
+// differs from the kernel's is refused, not trusted.
 inline bool make_axpy_table(const int64_t* rows, int n, int64_t unit,
-                            AxpyTable* t) {
+                            void* out, AxpyTable* t) {
   *t = AxpyTable{};
   t->n_leaves = n;
   int64_t prev = 0;
@@ -89,7 +91,7 @@ inline bool make_axpy_table(const int64_t* rows, int n, int64_t unit,
     const int64_t* r = rows + (int64_t)i * kAxpyCols;
     t->a[i] = (const void*)(intptr_t)r[0];
     t->b[i] = (const void*)(intptr_t)r[1];
-    t->out[i] = (void*)(intptr_t)r[2];
+    t->out[i] = static_cast<char*>(out) + r[2];
     t->n[i] = r[3];
     t->end[i] = r[4];
     if (r[3] < 0 || r[4] - prev != cdiv(r[3], unit)) return false;

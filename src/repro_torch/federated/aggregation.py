@@ -11,12 +11,12 @@ round's client deltas.  The weight families:
   w_i = exp(−λ·(1 − cos(Δ_i, ref))), with the server momentum as the
   reference direction when the strategy keeps one, else the round mean.
 
-``weighted_mean`` is the one reduction dense deltas funnel through; leaf
-by leaf it runs the weighted-delta-reduce kernel (its plain version on
-CPU).  A stacked SparseLeaf wire (the sparse-native top-k uplink) takes
-``sparse_weighted_mean`` instead, the sparse-reduce kernel at K·k cost
-over all leaves in one call, and
-its norms, dots and DRAG weights are read off the wire without densifying.
+``weighted_mean`` is the one reduction dense deltas funnel through; it
+runs the weighted-delta-reduce kernel over all leaves in one call (its
+plain version leaf by leaf on CPU).  A stacked SparseLeaf wire (the
+sparse-native top-k uplink) takes ``sparse_weighted_mean`` instead, the
+sparse-reduce kernel at K·k cost over all leaves in one call, and its
+norms, dots and DRAG weights are read off the wire without densifying.
 """
 from __future__ import annotations
 
@@ -145,4 +145,4 @@ def weighted_mean(deltas, weights):
     write: summing bf16 deltas in bf16 loses the aggregate to rounding as K
     grows."""
     wn = weights.float() / torch.clamp(torch.sum(weights), min=_EPS)
-    return T.tree_map(lambda d: ops.weighted_delta_reduce(d, wn), deltas)
+    return ops.weighted_delta_reduce_tree(deltas, wn)

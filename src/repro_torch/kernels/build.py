@@ -24,8 +24,9 @@ BUILD_DIR = CSRC / "build"
 SOURCES = (CSRC / "fedadc_kernels.cu", CSRC / "compress_kernels.cu",
            CSRC / "kd_kernels.cu", CSRC / "attention_kernels.cu",
            CSRC / "ssd_kernels.cu")
+# -Xptxas -v puts each kernel's registers and spills in the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -36,10 +37,10 @@ _INT = ctypes.c_int
 # an int.  Every source also defines ``fedadc_error_string``.
 SIGNATURES = {
     SOURCES[0]: {
-        "fedadc_fused_axpy_leaves": [_P, _I64, _F, _INT, _P],
+        "fedadc_fused_axpy_leaves": [_P, _I64, _P, _F, _INT, _P],
         "fedadc_local_update": [_P, _P, _P, _P, _I64, _F, _INT, _P],
         "fedadc_server_update": [_P, _P, _P, _P, _P, _I64, _F, _F, _INT, _P],
-        "fedadc_weighted_reduce": [_P, _P, _P, _I64, _I64, _INT, _P],
+        "fedadc_weighted_reduce_leaves": [_P, _I64, _P, _P, _I64, _INT, _P],
     },
     SOURCES[1]: {
         "fedadc_threshold_select": [_P, _P, _P, _P, _I64, _I64, _INT, _P],

@@ -54,23 +54,27 @@ def check_operands(name: str, *tensors, dtype=None, shape=None,
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream's handle, for a launch: read directly, since
+    ``torch.cuda.current_stream()`` builds a Stream object each call, a
+    host cost every launch pays."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 AXPY_TILE = 2048      # elements a block: kAxpyTile in csrc/fedadc_kernels.cu
 
 
-def _axpy_plan(shapes, dtype):
-    """What a sweep over leaves of ``shapes`` needs besides the pointers,
-    computed once per tree: the table rows with each output's byte offset
-    in place of its pointer, the output buffer's length, each view's
+def _sweep_plan(shapes, dtype, tile):
+    """What an elementwise sweep writing leaves of ``shapes`` in blocks of
+    ``tile`` elements (the axpy, the weighted reduce) needs besides the
+    pointers, computed once per tree: the table rows with each output's
+    byte offset in the output buffer, the buffer's length, each view's
     (shape, strides, offset) and the launches the table takes."""
     esize = torch.empty((), dtype=dtype).element_size()
     fields, units, views, off = [], [], [], 0
     for shape in shapes:
         n = math.prod(shape)
         fields.append((0, 0, off * esize, n))
-        units.append((leaf_table.cdiv(n, AXPY_TILE),))
+        units.append((leaf_table.cdiv(n, tile),))
         views.append((shape, leaf_table.strides(shape), off))
         off += leaf_table.padded(n)
     rows, totals = leaf_table.pack(fields, units)
@@ -102,23 +106,33 @@ def fused_axpy_leaves(xs, ys, a: float):
     shapes = tuple(x.shape for x in xs)
     if tuple(y.shape for y in ys) != shapes:
         raise ValueError("fused_axpy: x and y leaves differ in shape")
-    plan = _PLANS.get((shapes, dtype))
-    if plan is None:
-        plan = _PLANS.setdefault((shapes, dtype), _axpy_plan(shapes, dtype))
-    template, total, views, launches = plan
-    out = torch.empty(total, dtype=dtype, device=xs[0].device)
-    rows = template.copy()
+    rows, out, views, launches = sweep_table(shapes, dtype, xs[0].device,
+                                             AXPY_TILE)
     rows[:, 0] = [x.data_ptr() for x in xs]
     rows[:, 1] = [y.data_ptr() for y in ys]
-    rows[:, 2] += out.data_ptr()
-    build.launch("fedadc_fused_axpy_leaves", rows.ctypes.data, len(xs), a,
-                 DTYPE_CODE[dtype], stream())
+    build.launch("fedadc_fused_axpy_leaves", rows.ctypes.data, len(xs),
+                 out.data_ptr(), a, DTYPE_CODE[dtype], stream())
     fused_axpy_leaves.launches += launches
     return [out.as_strided(shape, st, off) for shape, st, off in views]
 
 
-# sweep plans by (leaf shapes, dtype): a run sweeps a handful of trees
+# sweep plans by (leaf shapes, dtype, tile): a run sweeps a handful of trees
 _PLANS = {}
+
+
+def sweep_table(shapes, dtype, device, tile):
+    """An elementwise sweep's table for outputs of ``shapes`` in blocks of
+    ``tile`` elements: (a copy of the planned rows, whose output column
+    holds byte offsets into the buffer, the output buffer, the views'
+    geometry, the launches).  The caller fills the input pointers
+    (columns 0 and 1) and passes the buffer's pointer."""
+    key = (shapes, dtype, tile)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS.setdefault(key, _sweep_plan(shapes, dtype, tile))
+    template, total, views, launches = plan
+    return (template.copy(), torch.empty(total, dtype=dtype, device=device),
+            views, launches)
 
 
 def fused_axpy(x: torch.Tensor, y: torch.Tensor, a: float) -> torch.Tensor:

@@ -4,14 +4,18 @@
 ``flash_attention`` is the counterpart of the Pallas ``flash_attention`` in
 the JAX package's ``kernels/flash_attention.py``: softmax(q·kᵀ/√D)·v with
 the causal mask and an optional sliding window, head h reading kv head
-h // (H/Hk), fp32 arithmetic, output in q's dtype.  It takes the model's
-(B, L, H, D) layout as it is; the TPU kernel's (B, H, L, D) layout and the
-transposes around it have no counterpart here.
+h // (H/Hk), fp32 softmax and sums, output in q's dtype.  bf16 operands
+take the tensor-core kernel (wgmma, P rounded to bf16 before P·V); fp32
+ones the CUDA-core kernel.  It takes the model's (B, L, H, D) layout as it
+is; the TPU kernel's (B, H, L, D) layout and the transposes around it have
+no counterpart here.
 
 The wrapper checks its operands and raises on what the kernel does not
-take, allocates the output with ``torch.empty``, launches on the current
-stream, raises if the launch reports an error, and counts its launches in
-``flash_attention.launches``.
+take, copies an operand whose start is not 16-byte aligned (the kernels
+copy 16 bytes at a time), allocates the output with ``torch.empty``,
+launches on the current stream, raises if the launch reports an error, and
+counts its launches in ``flash_attention.launches``.  There is no backward:
+``ops.flash_attention`` refuses operands that need a gradient.
 """
 from __future__ import annotations
 
@@ -21,6 +25,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.fedadc_update import DTYPE_CODE, check_operands, stream
 
 HEAD_DIMS = (64, 128)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -42,6 +50,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    device=q.get_device())
     o = torch.empty_like(q)
     if o.numel():
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
         build.launch("fedadc_flash_attention", q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), o.data_ptr(), B, L, H, Hk, D, int(causal),
                      int(window), D ** -0.5, DTYPE_CODE[q.dtype], stream())

@@ -29,7 +29,7 @@ KERNELS = {
     "fused_axpy": _fu.fused_axpy_leaves,
     "local_update": _fu.local_update,
     "server_update": _fu.server_update,
-    "weighted_reduce": _wr.weighted_reduce,
+    "weighted_reduce": _wr.weighted_reduce_leaves,
     "threshold_select": _cp.threshold_select,
     "qsgd": _cp.qsgd,
     "sparse_reduce": _sr.sparse_reduce_leaves,
@@ -124,6 +124,20 @@ def weighted_delta_reduce(deltas, weights):
     if deltas.device.type == "cpu":
         return ref.weighted_delta_reduce(deltas, weights)
     return _wr.weighted_reduce(deltas, weights)
+
+
+def weighted_delta_reduce_tree(deltas_tree, weights):
+    """Σ_k w_k·Δ_k leaf by leaf over a stacked tree (leading axis K on
+    every leaf), fp32 sums cast on write: on the card one launch a dtype
+    (per 64 leaves)."""
+    ds = T.leaves(deltas_tree)
+    if _on_cpu(ds + [weights], "weighted_reduce"):
+        return _like(deltas_tree, [ref.weighted_delta_reduce(d, weights)
+                                   for d in ds])
+    w = weights.float()
+    return _like(deltas_tree, _per_dtype(
+        [d.dtype for d in ds],
+        lambda pos: _wr.weighted_reduce_leaves([ds[i] for i in pos], w)))
 
 
 # ---------------------------------------------------------------------------
@@ -225,13 +239,28 @@ def kd_loss(student_logits, teacher_logits, labels, rho, lam, tau):
 # ---------------------------------------------------------------------------
 # attention and the SSD scan (the LM forward's ``use_pallas=True`` route)
 # ---------------------------------------------------------------------------
+def _refuse_grad(name, *tensors):
+    """Raise where autograd would have to differentiate through a kernel
+    that has no backward.  The reference refuses the same way (``jax.grad``
+    through its Pallas kernel raises), so a caller that trains takes the
+    plain route (``use_pallas=False``) instead of getting no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward (the reference's "
+            f"Pallas kernel has none either); call it under torch.no_grad() "
+            f"or on tensors that do not require grad, or train with "
+            f"use_pallas=False")
+
+
 def flash_attention(q, k, v, causal=True, window=0):
     """q (B, L, H, D), k/v (B, L, Hk, D) in the model's layout -> (B, L, H,
-    D) in q's dtype."""
+    D) in q's dtype.  On the card it refuses operands that need a
+    gradient (``_refuse_grad``)."""
     if q.device.type == "cpu":
         out = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal, window)
         return out.transpose(1, 2)
+    _refuse_grad("flash_attention", q, k, v)
     return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal, window)
 
@@ -241,12 +270,14 @@ def ssd_scan(x, dt, A_log, B, C, D, chunk=256):
     (b, L, H, N), A_log and D (H,) -> y (b, L, H, P) fp32.  As in the
     reference, the prologue (x·dt and the log decay) and the D skip stay
     outside the kernel, and the kernel's output is rounded to x's dtype
-    before the fp32 D term is added (``ssd_scan.py:66-73, 91-93``)."""
+    before the fp32 D term is added (``ssd_scan.py:66-73, 91-93``).  On the
+    card it refuses kernel operands that need a gradient."""
     chunk = min(chunk, x.shape[1])
     xdt, a = ref.ssd_prologue(x, dt, A_log)
     if x.device.type == "cpu":
         y = ref.ssd_recurrence(xdt, a, B, C).to(x.dtype)
     else:
+        _refuse_grad("ssd_scan", xdt, a, B, C)
         y = _ssd.ssd_scan(xdt.contiguous(), a.contiguous(), B.contiguous(),
                           C.contiguous(), chunk, x.dtype)
     return y.float() + D.float()[None, None, :, None] * xdt

@@ -460,3 +460,93 @@ def test_engine_on_the_card_matches_the_cpu():
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
     assert outs[0] == outs[1]
+
+
+@pytest.mark.gpu
+def test_lm_kernels_refuse_a_gradient_on_the_card():
+    """Neither LM kernel has a backward (nor has the reference's Pallas
+    kernel): on the card ``loss_fn(use_pallas=True)`` with parameters that
+    require grad raises instead of giving no gradient through attention
+    and the SSD, and ``use_pallas=False`` gives every leaf a gradient; the
+    kernel route runs under no_grad."""
+    need_card()
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import MAMBA2, SHARED_ATTN
+    from repro_torch.models import transformer as LM
+    cfg = replace(get_arch("zamba2-1.2b").reduced(),
+                  block_pattern=(MAMBA2, SHARED_ATTN, MAMBA2))
+    params = T.tree_map(lambda t: t.requires_grad_(),
+                        LM.init(0, cfg, device="cuda"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(3)).cuda()
+    batch = {"tokens": toks, "labels": toks}
+    with pytest.raises(RuntimeError, match="no backward"):
+        LM.loss_fn(params, batch, cfg, use_pallas=True)[0].backward()
+    loss, _ = LM.loss_fn(params, batch, cfg, use_pallas=False)
+    loss.backward()
+    grads = [t.grad for t in T.leaves(params["shared_attn"]["attn"])]
+    assert grads and all(g is not None and torch.isfinite(g).all()
+                         for g in grads)
+    assert all(g.abs().sum() > 0 for g in grads)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        kernel_loss = LM.loss_fn(params, batch, cfg, use_pallas=True)[0]
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["ssd_scan"] == 2
+    assert abs(kernel_loss.item() - loss.item()) <= 1e-4 * abs(loss.item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weighted_reduce_leaves_over_the_models_leaves(dtype):
+    """One call over the paper CNN's 16 leaves and over ResNet-18's 76
+    (two leaf-table groups), stacked over K=8: each leaf bit for bit the
+    plain version, one launch per 64 leaves."""
+    need_card()
+    from repro_torch.models.vision import cnn_init, resnet18_init
+    g = torch.Generator().manual_seed(10)
+    w = torch.rand(8, generator=g).cuda()
+    for params in (cnn_init(0, width=32, image_size=32, device="cpu"),
+                   resnet18_init(0, n_classes=100, device="cpu")):
+        stacks = [torch.randn((8,) + tuple(t.shape), generator=g).to(
+            "cuda", dtype) for t in T.leaves(params)]
+        ops.reset_launch_counts()
+        got = WR.weighted_reduce_leaves(stacks, w)
+        assert ops.launch_counts()["weighted_reduce"] == -(-len(stacks)
+                                                            // 64)
+        for o, d in zip(got, stacks):
+            assert o.shape == d.shape[1:] and o.dtype == dtype
+            assert torch.equal(o, ref.weighted_delta_reduce(d, w))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_at_the_smoke_shapes():
+    """The tensor-core bf16 kernel at every shape ``chip_smoke.py`` checks
+    (the reference sweep, its windows, zamba2-1.2b's prefill and Qwen3's
+    GQA 32/8 at D 128) within the reference's bf16 bar, 2e-2 abs + rel."""
+    need_card()
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator().manual_seed(12)
+    for B, H, Hk, L, D, window in ((1, 2, 2, 128, 64, 0),
+                                   (2, 4, 2, 256, 64, 0),
+                                   (1, 8, 1, 128, 128, 0),
+                                   (1, 4, 4, 192, 64, 0),
+                                   (1, 2, 2, 256, 64, 32),
+                                   (1, 2, 2, 256, 64, 64),
+                                   (1, 2, 2, 256, 64, 128),
+                                   (4, 32, 32, 2048, 64, 0),
+                                   (1, 32, 8, 1024, 128, 0)):
+        q = torch.randn(B, L, H, D, generator=g).to("cuda", torch.bfloat16)
+        k, v = (torch.randn(B, L, Hk, D, generator=g).to("cuda",
+                                                          torch.bfloat16)
+                for _ in range(2))
+        got = FA.flash_attention(q, k, v, True, window)
+        want = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), True,
+                                   window).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    torch.cuda.synchronize()

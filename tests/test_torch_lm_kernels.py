@@ -16,8 +16,13 @@ and with its Pallas kernel in interpret mode.  Bars, from
   arithmetic in another library).
 
 The CUDA kernels need the card: ``tests/test_torch_gpu.py`` holds them
-against these plain versions there and skips here.
+against these plain versions there and skips here.  What can be checked
+here of them is checked here: the bf16 kernel's rounding, emulated in
+torch, against the Pallas kernel; and the refusal of a gradient that the
+card's route cannot give.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,3 +186,93 @@ def test_cpu_route_counts_no_launch_and_kernels_refuse_cpu_tensors():
     xdt, a = ref.ssd_prologue(*args[:3])
     with pytest.raises(ValueError, match="CUDA"):
         SSD.ssd_scan(xdt, a, args[3], args[4], 16, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# no backward on the card: the refusal
+# ---------------------------------------------------------------------------
+def test_refuse_grad_raises_only_where_a_gradient_is_needed():
+    x = torch.randn(3, requires_grad=True)
+    y = torch.randn(3)
+    with pytest.raises(RuntimeError, match="flash_attention.*no backward"):
+        ops._refuse_grad("flash_attention", y, x)
+    with pytest.raises(RuntimeError, match="ssd_scan.*no backward"):
+        ops._refuse_grad("ssd_scan", x)
+    ops._refuse_grad("flash_attention", y, y)
+    with torch.no_grad():
+        ops._refuse_grad("ssd_scan", x, y)
+
+
+def test_cpu_route_still_differentiates():
+    """The CPU route runs the plain versions, which autograd
+    differentiates: the parity tests of the models' gradients rely on
+    them."""
+    q = torch.randn(1, 64, 2, 64, requires_grad=True)
+    ops.flash_attention(q, q, q).square().sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+    assert q.grad.abs().sum() > 0
+    args, _ = ssd_operands(1, 1, 64, 2, 16, 8, "float32")
+    x = args[0].clone().requires_grad_()
+    ops.ssd_scan(x, *args[1:], chunk=16).square().sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    assert x.grad.abs().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's arithmetic, emulated
+# ---------------------------------------------------------------------------
+def bf16_kernel_emulation(q, k, v, causal=True, window=0):
+    """q (B, H, L, D), k/v (B, Hk, L, D) bf16 -> (B, H, L, D) bf16 by the
+    tensor-core kernel's arithmetic: exact bf16 products summed in fp32;
+    the fp32 scores scaled with log2(e) folded in; an online softmax over
+    key tiles of 128 keys (D 64) or 64 (D 128), with the running max in
+    raw score units and fp32 sums of the unrounded p; P rounded to bf16
+    before P·V, accumulated in fp32; one division and one rounding at the
+    end."""
+    B, H, L, D = q.shape
+    g = H // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    sl2 = D ** -0.5 * math.log2(math.e)
+    bk = 128 if D == 64 else 64
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf)
+    qpos = torch.arange(L)[:, None]
+    m = torch.full((B, H, L, 1), -math.inf)
+    l = torch.zeros((B, H, L, 1))
+    acc = torch.zeros((B, H, L, D))
+    for k0 in range(0, L, bk):
+        s = scores[..., k0:k0 + bk]
+        kpos = torch.arange(k0, min(k0 + bk, L))[None, :]
+        vis = torch.ones((L, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            vis &= kpos <= qpos
+        if window > 0:
+            vis &= kpos > qpos - window
+        s = torch.where(vis, s, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        ms = torch.where(m_new == -math.inf, 0.0, m_new * sl2)
+        corr = torch.exp2(m * sl2 - ms)
+        p = torch.exp2(s * sl2 - ms)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.bfloat16().float() @ vf[..., k0:k0 + bk, :]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+@pytest.mark.parametrize("B,H,Hk,L,D,window",
+                         [shape + (0,) for shape in FLASH_SHAPES]
+                         + [(1, 2, 2, 256, 64, w) for w in (32, 64, 128)])
+def test_bf16_kernel_rounding_meets_the_reference_bar(B, H, Hk, L, D,
+                                                      window):
+    """The bf16 kernel's design (P rounded to bf16, the scale on the fp32
+    scores, exp2 with log2(e) folded in) stays within the reference's bf16
+    bar, 2e-2 abs + rel, of the Pallas kernel in interpret mode at the
+    reference sweep's shapes: MHA, GQA, MQA at D 128, a ragged L 192 and
+    the windows."""
+    rng = np.random.RandomState(L + H + window)
+    (q, jq), (k, jk), (v, jv) = (operand(rng, s, "bfloat16") for s in (
+        (B, H, L, D), (B, Hk, L, D), (B, Hk, L, D)))
+    got = bf16_kernel_emulation(q, k, v, causal=True, window=window)
+    want = JFA.flash_attention(jq, jk, jv, causal=True, window=window,
+                               block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(f32(got), f32(want), atol=2e-2, rtol=2e-2)

@@ -2,11 +2,13 @@
 every leaf of a tree, described to the card by a leaf table.
 
 On the CPU the tree forms (``ops.fused_axpy_tree``,
+``ops.weighted_delta_reduce_tree``,
 ``ops.sparse_weighted_delta_reduce_tree``) run the same per-leaf plain
 versions as the one-leaf forms, so they are held bit for bit against
-those, and the sparse sweep also against the JAX package's
-``sparse_weighted_delta_reduce`` (client-major, pair-order fp32 sums on
-both sides).  The packer of the leaf table is pure Python, so its layout
+those, the dense reduce also against the JAX package's
+``weighted_delta_reduce`` (at ``test_torch_kernels.py``'s bar) and the
+sparse one against its ``sparse_weighted_delta_reduce`` (client-major,
+pair-order fp32 sums on both sides).  The packer of the leaf table is pure Python, so its layout
 and its split into groups of 64 leaves are checked here with CPU
 ``data_ptr()``s; the kernels that read the table need the card
 (``tests/test_torch_gpu.py``).
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import strategies as S
 from repro_torch.core import tree as T
@@ -23,6 +26,8 @@ from repro_torch.kernels import fedadc_update as FU
 from repro_torch.kernels import leaf_table as LT
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sparse_reduce as SR
+from repro_torch.kernels import weighted_reduce as WR
+from repro_torch.models.vision import cnn_init
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -231,3 +236,101 @@ def test_sweep_wrappers_refuse_cpu_and_unsupported_operands():
                                    torch.float32) == []
     assert ops.launch_counts()["fused_axpy"] == 0
     assert ops.launch_counts()["sparse_reduce"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the dense aggregate: the weighted reduce over every leaf
+# ---------------------------------------------------------------------------
+def bf16_ulp(v):
+    v = np.maximum(np.abs(v), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_weighted_reduce_tree_matches_plain_and_reference(dtype):
+    """Over the paper CNN's 16 leaf shapes (width 32) stacked over K=8
+    clients: bit for bit the per-leaf plain version, and within
+    ``test_torch_kernels.py``'s bar of the JAX package's Pallas reduce
+    (1e-6 of Σ|w·Δ| in fp32; one bf16 ulp in bf16, where the reference
+    rounds each op)."""
+    dt = DTYPES[dtype]
+    shapes = [tuple(t.shape) for t in T.leaves(
+        cnn_init(0, width=32, image_size=32, device="cpu"))]
+    assert len(shapes) == 16
+    rng = np.random.RandomState(11)
+    tree = {f"l{i:02d}": torch.from_numpy(
+        rng.randn(8, *sh).astype(np.float32)).to(dt)
+        for i, sh in enumerate(shapes)}
+    w = torch.from_numpy(rng.uniform(0.2, 1.0, 8).astype(np.float32))
+    ops.reset_launch_counts()
+    got = ops.weighted_delta_reduce_tree(tree, w)
+    assert ops.launch_counts()["weighted_reduce"] == 0
+    assert list(got) == list(tree)
+    want = jops.weighted_delta_reduce(
+        {k: jnp.asarray(d.float().numpy(), JAX_DT[dt])
+         for k, d in tree.items()}, jnp.asarray(w.numpy()))
+    for key, d in tree.items():
+        assert got[key].dtype == dt and got[key].shape == d.shape[1:]
+        assert torch.equal(got[key], ref.weighted_delta_reduce(d, w))
+        g = got[key].double().numpy()
+        jw = np.asarray(jnp.asarray(want[key]).astype(jnp.float32),
+                        np.float64)
+        terms = np.sum(np.abs(w.double().numpy().reshape(
+            (8,) + (1,) * (d.dim() - 1)) * d.double().numpy()), axis=0)
+        bound = 1e-6 * terms if dtype == "float32" else bf16_ulp(
+            np.maximum(np.abs(jw), terms))
+        assert np.all(np.abs(g - jw) <= bound)
+
+
+def test_weighted_mean_runs_the_tree_form():
+    """``aggregation.weighted_mean`` normalises the weights and reduces
+    every leaf through the tree form, mixed dtypes included."""
+    from repro_torch.federated import aggregation as A
+    tree = {"a": torch.randn(3, 4, 5), "b": {"c": torch.randn(3, 7).bfloat16()}}
+    w = torch.tensor([1.0, 2.0, 5.0])
+    got = A.weighted_mean(tree, w)
+    wn = w / w.sum()
+    assert torch.equal(got["a"], ref.weighted_delta_reduce(tree["a"], wn))
+    assert torch.equal(got["b"]["c"],
+                       ref.weighted_delta_reduce(tree["b"]["c"], wn))
+    assert got["b"]["c"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("n_leaves", [16, 64, 65, 76])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weighted_reduce_plan(n_leaves, dtype):
+    """The reduce's table: per leaf (stack pointer, 0, the output's byte
+    offset, n, end of its blocks of 4 KB of output); offsets 16-byte
+    aligned; one launch per 64 leaves; views that tile the buffer."""
+    lengths = [1, 7, 1024, 1025, 4097, 0, 2048, 30]
+    shapes = tuple((lengths[i % len(lengths)],) for i in range(n_leaves))
+    tile = WR.REDUCE_BYTES // torch.empty((), dtype=dtype).element_size()
+    rows, total, views, launches = FU._sweep_plan(shapes, dtype, tile)
+    assert rows.shape == (n_leaves, 5)
+    esize = torch.empty((), dtype=dtype).element_size()
+    run, off = 0, 0
+    for i, ((n,), row) in enumerate(zip(shapes, rows.tolist())):
+        if i % LT.MAX_LEAVES == 0:
+            run = 0
+        run += LT.cdiv(n, tile)
+        assert row == [0, 0, off * esize, n, run]
+        assert row[2] % 16 == 0
+        assert views[i] == ((n,), (1,), off)
+        off += LT.padded(n)
+    assert total == off
+    assert launches == -(-n_leaves // LT.MAX_LEAVES)
+
+
+def test_weighted_reduce_wrapper_refuses_cpu_and_bad_stacks():
+    x = torch.randn(4, 10)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        WR.weighted_reduce_leaves([x, x], torch.ones(4))
+    with pytest.raises(ValueError, match="CUDA"):
+        WR.weighted_reduce(x, torch.ones(4))
+    with pytest.raises(ValueError, match="not supported"):
+        WR.weighted_reduce_leaves([x.double()], torch.ones(4))
+    assert WR.weighted_reduce_leaves([], torch.ones(4)) == []
+    assert ops.launch_counts()["weighted_reduce"] == 0
+    with pytest.raises(ValueError, match="mixed devices"):
+        ops.weighted_delta_reduce_tree({"a": x}, torch.ones(4, device="meta"))
