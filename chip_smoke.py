@@ -5,6 +5,11 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --kernel-times [--src OTHER/src]`` only builds the
+port of this (or another) checkout and times its SSD scan and QSGD sweep
+(``kernel_times``), one JSON line, so that two checkouts can be timed in
+turns on one card.
+
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. build    — compile the port's CUDA kernels with nvcc for sm_90a, and log
@@ -13,14 +18,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               plain PyTorch version on the card, bit for bit in fp32 and
               bf16, at the main path's leaf shapes (the paper CNN at width
               32, its 16 leaves stacked over K=8 clients) and at
-              ResNet-18's largest leaf stacked over K=8; the three sweep
-              kernels (fused_axpy and the weighted reduce, one launch per
-              64 leaves, and the sparse reduce, one call of four kernels
-              per aggregate) also over ResNet-18's 76 leaves (two
-              leaf-table groups), over edge sweeps (an empty leaf, lengths
-              off the tile, a leaf not 16-byte aligned, k = 0,
-              out-of-range indices) and, for the sparse reduce, duplicate
-              indices within and across clients; the weighted and the
+              ResNet-18's largest leaf stacked over K=8; the four sweep
+              kernels (fused_axpy, the weighted reduce and QSGD, one launch
+              per 64 leaves, QSGD with each row's scale computed in the
+              call, and the sparse reduce, one call of four kernels per
+              aggregate) also over ResNet-18's 76 leaves (two leaf-table
+              groups), over edge sweeps (an empty leaf, lengths off the
+              tile, a leaf not 16-byte aligned, k = 0, out-of-range
+              indices; for QSGD an all-zero leaf, a NaN and a -0.0, also
+              against one-leaf tables with torch.amax scales given) and,
+              for the sparse reduce,
+              duplicate indices within and across clients; the weighted and the
               sparse reduce also at K=96 bf16 against an fp64 oracle (1
               bf16 ulp);
               the KD forward and backward kernels in fp32 and bf16 at the
@@ -33,17 +41,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               windows 32/64/128), zamba2-1.2b's prefill (B 4, H 32, L 2048,
               D 64) and Qwen3's GQA 32/8 at D 128, within 2e-5 / 2e-2 abs +
               rel (bf16 on the tensor cores, fp32 on the CUDA cores); the
-              SSD scan at the reference sweep, a ragged L 300 and
-              zamba2-1.2b's prefill (b 4, L 2048, H 64, P 64, N 64, chunk
-              256), within 2e-5 / 5e-2 of max |y|; both refuse operands
+              SSD scan (three kernels a call: chunk states, carry, outputs)
+              at the reference sweep, ragged L 300 and L 1100, batch 1 at
+              L 4096, zamba2-1.2b's prefill (b 4, L 2048, H 64, P 64, N 64,
+              chunk 256) and decays that underflow, within 2e-5 / 5e-2 of
+              max |y| (bf16 B and C with an fp32 output also within 1e-4),
+              its running sums and states in device memory against the
+              plain phases; both refuse operands
               that need a gradient; then time each kernel, its
               plain version and, where one PyTorch call computes the same
               function, that call (flash: scaled_dot_product_attention;
               fused_axpy: torch._foreach_add, the per-leaf torch.add sweep
               logged beside it; the weighted reduce: torch.tensordot per
-              leaf; the sparse reduce: index_add_ per leaf), flash in bf16
-              at the prefill shape too, and both LM kernels at the
-              prefill_32k length (L 32768);
+              leaf; the sparse reduce: index_add_ per leaf; QSGD: the table
+              call with the scales given and a loop of one-leaf calls with
+              and without torch.amax launches), flash and the SSD in bf16 at
+              the prefill shape too, and both LM kernels at the prefill_32k
+              length (L 32768);
 3. main     — the paper CNN at width 32 on 32x32x3 images at CIFAR-10
               cardinality (50000/10000), sort-and-partition s=2 over 100
               clients, FedConfig defaults (|S|=8, H=8, nesterov) but eta 0.01,
@@ -106,6 +120,7 @@ Every time is measured here, on the card named in the output.  Bounds use
 the H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s of fp32 outside the
 tensor cores and 989 TFLOP/s of bf16 in them.
 """
+import argparse
 import json
 import math
 import re
@@ -397,11 +412,13 @@ def wire_sweeps(torch, CP, SR, ref, shapes, dtype, gen):
                      for v, t in zip(vs, taus)],
             lambda: [torch.where(v.abs() >= t.reshape((K,) + (1,) * (
                 v.dim() - 1)), v, zero) for v, t in zip(vs, taus)]),
+        # the table call, each row's scale computed in it, against the plain
+        # version with torch.amax scales (the same function)
         "qsgd": (
-            lambda: [CP.qsgd(v, u, sc, 15)
-                     for v, u, sc in zip(vs, us, scales)],
-            lambda: [ref.qsgd_quantize(v, u, sc, 15)
-                     for v, u, sc in zip(vs, us, scales)],
+            lambda: list(zip(*CP.qsgd_leaves(vs, us, 15))),
+            lambda: [ref.qsgd_quantize(
+                v, u, torch.amax(v.reshape(K, -1).abs(), dim=1), 15)
+                for v, u in zip(vs, us)],
             None),
         "sparse_reduce": (
             lambda: SR.sparse_reduce_leaves(*wire_lists, w, shape_list,
@@ -411,6 +428,84 @@ def wire_sweeps(torch, CP, SR, ref, shapes, dtype, gen):
                      for vals, idx, shape in wires],
             lambda: [buf.index_add_(0, i, wv) for wv, i, buf in lib_pairs]),
     }
+
+
+def qsgd_yardsticks(torch, CP, shapes, gen, iters=30):
+    """{label: ms} of the QSGD sweep over leaves of `shapes` stacked over K
+    (fp32): the table call with the scales given, a loop of one-leaf calls
+    (``CP.qsgd``, a table of one) with the scales given and with a
+    torch.amax launch a leaf (the earlier main path's pattern), beside the
+    table call with the scales folded in (the row's ms)."""
+    vs = [torch.randn((K, *s), generator=gen).cuda() for s in shapes]
+    us = [torch.rand((K, *s), generator=gen).cuda() for s in shapes]
+    scales = [torch.amax(v.reshape(K, -1).abs(), dim=1) for v in vs]
+    flat = torch.cat(scales)
+    calls = {
+        "one-leaf loop, scales given": lambda: [
+            CP.qsgd(v, u, sc, 15) for v, u, sc in zip(vs, us, scales)],
+        "one-leaf loop + amax": lambda: [
+            CP.qsgd(v, u, torch.amax(v.reshape(K, -1).abs(), dim=1), 15)
+            for v, u in zip(vs, us)]}
+    # a checkout from before the leaf table (--kernel-times --src) has
+    # only the one-leaf call
+    if hasattr(CP, "qsgd_leaves"):
+        calls["table, scales folded"] = lambda: CP.qsgd_leaves(vs, us, 15)
+        calls["table, scales given"] = lambda: CP.qsgd_leaves(
+            vs, us, 15, scales=flat)
+    times = {label: cuda_ms(torch, fn, iters=iters)
+             for label, fn in calls.items()}
+    if "table, scales folded" in calls:
+        times["device ms by kernel, table"] = device_ms_by_kernel(
+            torch, calls["table, scales folded"])
+    return times
+
+
+def kernel_times(torch, gen):
+    """{label: ms} of the two kernels this run's yardsticks compare across
+    checkouts: the SSD scan at zamba2-1.2b's prefill shape and at L 32768
+    (batch 1), B, C and y in fp32 and bf16 (30 calls; 10 at L 32768), and
+    QSGD's qsgd_yardsticks over the CNN's 16 leaves and ResNet-18's largest
+    leaf."""
+    from repro_torch.kernels import compress as CP
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models.vision import cnn_init
+    out = {}
+    for tag, shape in (("prefill", SSD_SHAPES[-1]),
+                       ("L 32768", (1, LONG_L, 64, 64, 64, 256))):
+        for dtype in (torch.float32, torch.bfloat16):
+            xdt, a, Bm, Cm = ssd_operands(torch, shape, dtype, gen)
+            out[f"ssd_scan {tag} {dtype}"] = cuda_ms(
+                torch, lambda: SSD.ssd_scan(xdt, a, Bm, Cm, 256, dtype),
+                iters=30 if tag == "prefill" else 10)
+            del xdt, a, Bm, Cm
+    cnn_shapes = leaf_shapes(cnn_init(0, width=32, image_size=32,
+                                      device="cpu"))
+    for tag, shapes in (("CNN", cnn_shapes),
+                        ("ResNet-18's largest leaf", [(512, 512, 3, 3)])):
+        out[f"qsgd {tag}"] = qsgd_yardsticks(torch, CP, shapes, gen)
+    return out
+
+
+def kernel_times_main(src):
+    """--kernel-times: build the port of the checkout whose ``src`` is
+    given (its own build directory) and print one JSON line, the card's
+    name and power limit and kernel_times.  Two checkouts compare on one
+    card in turns (this, other, other, this)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    src = Path(src).resolve()
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import build
+    build.build_all()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    gen = torch.Generator().manual_seed(0)
+    print(json.dumps({"src": str(src), "card": smi,
+                      **kernel_times(torch, gen)}), flush=True)
+    return 0
 
 
 def profile_round(torch, sim, round_s, tag, top=12):
@@ -448,9 +543,9 @@ def profile_round(torch, sim, round_s, tag, top=12):
 
 def expected_wire_launches(tag, rounds, n_leaves, h_steps):
     """The launches `rounds` nesterov FedADC rounds make on wire `tag`:
-    the axpy and the weighted reduce one launch a sweep (per 64 leaves),
-    the sparse reduce one call an aggregate, the other kernels one launch a
-    leaf."""
+    the axpy, the weighted reduce and QSGD one launch a sweep (per 64
+    leaves), the sparse reduce one call an aggregate, the other kernels one
+    launch a leaf."""
     groups = table_groups(n_leaves)
     per_round = {"fused_axpy": 2 * h_steps * groups,
                  "local_update": 0,
@@ -460,7 +555,7 @@ def expected_wire_launches(tag, rounds, n_leaves, h_steps):
                  "threshold_select": n_leaves if tag == "a_topk_dense" else 0,
                  # QSGD on the uplink and on the θ delta of the downlink
                  # (FedADC's ctx is derived from it, not sent)
-                 "qsgd": 2 * n_leaves if tag == "c_qsgd_delta_qsgd" else 0,
+                 "qsgd": 2 * groups if tag == "c_qsgd_delta_qsgd" else 0,
                  "sparse_reduce": 1 if tag == "b_topk_sparse" else 0,
                  "kd_loss": 0, "kd_loss_bwd": 0, "flash_attention": 0,
                  "ssd_scan": 0}
@@ -507,14 +602,17 @@ def max_err(got, want):
     return max(flat)
 
 
-def sweep_kernel_checks(torch, FU, WR, SR, ref, gen, resnet_shapes, errs):
-    """The three leaf-table kernels against their plain versions on the
+def sweep_kernel_checks(torch, FU, WR, CP, SR, ref, gen, resnet_shapes,
+                        errs):
+    """The four leaf-table kernels against their plain versions on the
     card, bit for bit, in fp32 and bf16: over ResNet-18's 76 leaves stacked
     over K (two table groups) and over edge sweeps — an empty leaf, lengths
-    off the axpy's 2048, the weighted reduce's 1024 / 2048 and the sparse
-    reduce's 8192-element tiles, a leaf whose pointers are not 16-byte
-    aligned (the scalar path), k = 0, out-of-range indices, duplicate
-    indices within and across clients."""
+    off the axpy's 2048, the weighted reduce's 1024 / 2048, QSGD's 4096 and
+    the sparse reduce's 8192-element tiles, a leaf whose pointers are not
+    16-byte aligned (the scalar path), k = 0, out-of-range indices,
+    duplicate indices within and across clients; for QSGD also against
+    one-leaf calls with the scales given, with an all-zero leaf, a NaN and
+    a -0.0."""
     dev = "cuda"
 
     def rnd(shape, dtype):
@@ -544,6 +642,40 @@ def sweep_kernel_checks(torch, FU, WR, SR, ref, gen, resnet_shapes, errs):
                                          f"differs from its plain version")
                 errs[name] = max(errs[name], e)
             del xs, ys
+    # QSGD's table against one-leaf calls (CP.qsgd, a table of one with the
+    # scales given) and the plain version, the scales computed in the call
+    # and by torch.amax: NaN-aware bit for bit
+    # (a row holding a NaN is NaN throughout on every side)
+    def same(a, b):
+        return (torch.equal(a.isnan(), b.isnan())
+                and torch.equal(a.nan_to_num(), b.nan_to_num()))
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, shapes in (("resnet18", r_stacked),
+                            ("edge", [sh for sh in edge if sh[1]]
+                             + [(K, 0)])):
+            vs = [rnd(sh, dtype) for sh in shapes]
+            us = [torch.rand(sh, generator=gen).to(dev, dtype)
+                  for sh in shapes]
+            if tag == "edge":   # an all-zero leaf, a NaN, a -0.0
+                vs[0].zero_()
+                vs[1][3, 0, 0, 0] = float("nan")
+                vs[2][1, 0] = -0.0
+            qs, rs = CP.qsgd_leaves(vs, us, 15)
+            bad = 0
+            for v, u, q, r in zip(vs, us, qs, rs):
+                if not v.numel():
+                    continue
+                sc = torch.amax(v.reshape(K, -1).abs(), dim=1)
+                for want in (CP.qsgd(v, u, sc, 15),
+                             ref.qsgd_quantize(v, u, sc, 15)):
+                    bad += not (same(q, want[0]) and same(r, want[1]))
+            torch.cuda.synchronize()
+            log(f"check qsgd {dtype} sweep {tag} ({len(shapes)} leaves): "
+                f"{bad} leaves differ from one-leaf calls or the plain "
+                f"version")
+            if bad:
+                raise AssertionError(f"qsgd {dtype} {tag} sweep differs")
+            del vs, us, qs, rs
     # (n, k, index draw): unique top-k-like, or random with duplicates and
     # out-of-range indices
     r_wire = [(math.prod(sh), topk_k(math.prod(sh)), "unique")
@@ -597,13 +729,18 @@ FLASH_SHAPES = [(1, 2, 2, 128, 64, 0), (2, 4, 2, 256, 64, 0),
                 (1, 2, 2, 256, 64, 32), (1, 2, 2, 256, 64, 64),
                 (1, 2, 2, 256, 64, 128), (4, 32, 32, 2048, 64, 0),
                 (1, 32, 8, 1024, 128, 0)]
-# SSD (b, L, H, P, N, chunk) — the reference sweep (:78-93), a ragged L and
-# zamba2-1.2b's prefill
+# SSD (b, L, H, P, N, chunk) — the reference sweep (:78-93), ragged lengths
+# (L 300; L 1100, five chunks), batch 1 at L 4096 (the carry crosses 16
+# chunks), P 12 and N 10 (the kernels' element-by-element copies) and
+# zamba2-1.2b's prefill (last: the timed shape)
 SSD_SHAPES = [(1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32),
               (1, 256, 2, 64, 64, 64), (2, 96, 3, 16, 8, 32),
-              (1, 300, 4, 64, 64, 256), (4, 2048, 64, 64, 64, 256)]
+              (1, 300, 4, 64, 64, 256), (1, 1100, 4, 64, 64, 256),
+              (1, 4096, 2, 64, 64, 256), (1, 64, 2, 12, 10, 16),
+              (4, 2048, 64, 64, 64, 256)]
 FLASH_BAR = {"float32": 2e-5, "bfloat16": 2e-2}   # abs and rel, :38-53
 SSD_BAR = {"float32": 2e-5, "bfloat16": 5e-2}     # of max |y|, :89-93
+SSD_SPLIT_BAR = 1e-4      # of max |y|: bf16 B, C with an fp32 output
 ZAMBA = "zamba2-1.2b"
 SERVE_B, SERVE_L, LONG_L = 4, 2048, 32768
 
@@ -652,13 +789,14 @@ def flash_operands(torch, shape, dtype, gen):
             torch.randn(B, L, Hk, D, generator=gen).to("cuda", dtype))
 
 
-def ssd_operands(torch, shape, dtype, gen):
+def ssd_operands(torch, shape, dtype, gen, dt_scale=1.0):
     """The kernel's pre-gated operands (x·dt, the log decay, B, C) from a
-    Mamba2-like draw: dt = softplus(N(0, 1)), A_log = log(1..H)."""
+    Mamba2-like draw: dt = dt_scale·softplus(N(0, 1)), A_log = log(1..H)."""
     from repro_torch.kernels import ref
     b, L, H, P, N, _ = shape
     x = torch.randn(b, L, H, P, generator=gen).to("cuda", dtype)
-    dt = torch.nn.functional.softplus(torch.randn(b, L, H, generator=gen))
+    dt = dt_scale * torch.nn.functional.softplus(
+        torch.randn(b, L, H, generator=gen))
     A_log = torch.log(torch.arange(1, H + 1, dtype=torch.float32))
     xdt, a = ref.ssd_prologue(x, dt.cuda(), A_log.cuda())
     Bm, Cm = (torch.randn(b, L, H, N, generator=gen).to("cuda", dtype)
@@ -690,21 +828,54 @@ def lm_kernel_checks(torch, FA, SSD, ref, gen, errs):
             errs["flash_attention"] = max(errs["flash_attention"],
                                           diff.max().item())
             del q, k, v, got, want, diff
-        for shape in SSD_SHAPES:
-            xdt, a, Bm, Cm = ssd_operands(torch, shape, dtype, gen)
-            got = SSD.ssd_scan(xdt, a, Bm, Cm, shape[5], dtype).float()
-            want = ref.ssd_recurrence(xdt, a, Bm, Cm).to(dtype).float()
+        for shape in SSD_SHAPES + ["underflow"]:
+            if shape == "underflow":    # exp(a_end) underflows to 0
+                shape = (1, 1024, 4, 64, 64, 256)
+                xdt, a, Bm, Cm = ssd_operands(torch, shape, dtype, gen,
+                                              dt_scale=40.0)
+            else:
+                xdt, a, Bm, Cm = ssd_operands(torch, shape, dtype, gen)
+            Q = min(shape[5], shape[1])
+            got, acum, state = SSD.ssd_scan(xdt, a, Bm, Cm, Q, dtype,
+                                            intermediates=True)
+            want32 = ref.ssd_recurrence(xdt, a, Bm, Cm)
+            want = want32.to(dtype).float()
+            # bf16 B and C with an fp32 output: the tensor cores' products
+            # on split (hi + lo) operands stay within SSD_SPLIT_BAR, which a
+            # single bf16 rounding of the scores or of x would miss
+            rel32 = 0.0
+            if dtype == torch.bfloat16:
+                got32 = SSD.ssd_scan(xdt, a, Bm, Cm, Q, torch.float32)
+                rel32 = ((got32 - want32).abs().max()
+                         / want32.abs().max()).item()
+                del got32
+            # what the kernels left in device memory against the plain
+            # phases: the running sums (double) and the state before each
+            # chunk (the chunk states themselves are overwritten in place)
+            r_acum, r_S = ref.ssd_chunk_states(xdt, a, Bm, Q)
+            r_h = ref.ssd_state_pass(r_S, r_acum)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
+            err = (got.float() - want).abs().max().item()
             rel = err / want.abs().max().item()
+            e_acum = (acum[..., :Q] - r_acum).abs().max().item()
+            N, P = shape[4], shape[3]
+            e_h = ((state[..., :N, :P] - r_h).abs().max()
+                   / r_h.abs().max().clamp_min(1e-30)).item()
+            pad = bool(state[..., N:, :].any() or state[..., P:].any())
             log(f"check ssd_scan {name} (b, L, H, P, N, chunk) {shape}: max "
                 f"|kernel - plain| = {err}, {rel} of max |y| (bar "
-                f"{SSD_BAR[name]})")
-            if not rel <= SSD_BAR[name]:
+                f"{SSD_BAR[name]}); running sums {e_acum} (bar 1e-9), states "
+                f"{e_h} of max |h| (bar 1e-4), padding nonzero {pad}"
+                + (f"; fp32 output {rel32} of max |y| (bar {SSD_SPLIT_BAR})"
+                   if dtype == torch.bfloat16 else ""))
+            if not (rel <= SSD_BAR[name] and e_acum <= 1e-9 and e_h <= 1e-4
+                    and rel32 <= SSD_SPLIT_BAR and not pad
+                    and torch.isfinite(got).all()):
                 raise AssertionError(f"ssd_scan {name} {shape}: kernel "
                                      f"differs from plain")
             errs["ssd_scan"] = max(errs["ssd_scan"], err)
-            del xdt, a, Bm, Cm, got, want
+            del xdt, a, Bm, Cm, got, want, want32, acum, state, r_acum, r_S
+            del r_h
     refuse_grad_check(torch)
 
 
@@ -775,6 +946,20 @@ def lm_kernel_times(torch, FA, SSD, ref, gen):
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     log(f"time ssd_scan {sshape} fp32 ({flops:.4g} flops): "
         f"{json.dumps(timed['ssd_scan'])}")
+    log(f"time ssd_scan {sshape} fp32, device ms by kernel (three a call): "
+        f"{json.dumps(device_ms_by_kernel(torch, lambda: SSD.ssd_scan(xdt, a, Bm, Cm, 256, torch.float32)))}")
+    del xdt, a, Bm, Cm
+    # the same shape with B, C and y in bf16, on the tensor cores (row 10b)
+    xdt, a, Bm, Cm = ssd_operands(torch, sshape, torch.bfloat16, gen)
+    b_ms, b_by, flops = ssd_bound(*sshape, elem_bytes=2)
+    rec = {"ms": cuda_ms(torch, lambda: SSD.ssd_scan(xdt, a, Bm, Cm, 256,
+                                                     torch.bfloat16)),
+           "plain_ms": cuda_ms(torch, lambda: ref.ssd_recurrence(
+               xdt, a, Bm, Cm), iters=3, warmup=1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"time ssd_scan {sshape} bf16 ({flops:.4g} flops): "
+        f"{json.dumps(rec)}; device ms by kernel: "
+        f"{json.dumps(device_ms_by_kernel(torch, lambda: SSD.ssd_scan(xdt, a, Bm, Cm, 256, torch.bfloat16)))}")
     del xdt, a, Bm, Cm
     # the prefill_32k shape (batch 1): the plain flash attention would need
     # the (L, L) scores, 137 GB, so only the kernel and the library
@@ -1158,7 +1343,8 @@ def main():
             raise AssertionError("sparse_reduce differs from its plain "
                                  "version on duplicate indices")
     del vals, idx, oracle, got
-    sweep_kernel_checks(torch, FU, WR, SR, ref, gen, resnet_shapes, errs)
+    sweep_kernel_checks(torch, FU, WR, CP, SR, ref, gen, resnet_shapes,
+                        errs)
     # the KD kernels: forward within the reference's bar, backward within
     # 1e-5 of the gradient's largest magnitude (each row is reduced in
     # another order than the plain version's, so not bit for bit)
@@ -1204,6 +1390,9 @@ def main():
             f"{json.dumps(timed[name])}"
             + (f"; yardsticks {json.dumps(yardsticks)}" if yardsticks
                else ""))
+        if name == "qsgd":
+            log(f"time qsgd over the CNN's leaves, yardsticks: "
+                f"{json.dumps(qsgd_yardsticks(torch, CP, cnn_shapes, gen))}")
         if name in SWEEP_KERNELS:
             lib_fn = next(iter(lib.values())) if isinstance(lib, dict) else lib
             log(f"time {name} over the CNN's leaves, device ms by kernel: "
@@ -1221,6 +1410,9 @@ def main():
         if name in SWEEP_KERNELS:
             log(f"time {name} on ResNet-18's largest leaf, device ms by "
                 f"kernel: {json.dumps(device_ms_by_kernel(torch, kern))}")
+        if name == "qsgd":
+            log(f"time qsgd on ResNet-18's largest leaf, yardsticks: "
+                f"{json.dumps(qsgd_yardsticks(torch, CP, resnet_leaf, gen))}")
     # the KD kernels at the FedADC+ CNN's folded (512, 10) (the line's
     # numbers) and an LM vocabulary's (1024, 32768); no single PyTorch call
     # computes this loss, so there is no library time
@@ -1652,4 +1844,13 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    parser = argparse.ArgumentParser(
+        description="On-card smoke run of the PyTorch port.")
+    parser.add_argument("--kernel-times", action="store_true",
+                        help="only build and time the SSD scan and QSGD "
+                             "(kernel_times) and print them as one JSON line")
+    parser.add_argument("--src", default=str(ROOT / "src"),
+                        help="with --kernel-times: the src/ directory whose "
+                             "repro_torch to time")
+    args = parser.parse_args()
+    sys.exit(kernel_times_main(args.src) if args.kernel_times else main())

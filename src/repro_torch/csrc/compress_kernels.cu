@@ -1,27 +1,36 @@
 // Hopper (sm_90a) kernels for the compressed wire of one FedADC round.
 //
-// Three kernels, each the CUDA counterpart of one Pallas kernel of the JAX
-// package (src/repro/kernels/):
+// Three entry points, each the CUDA counterpart of one Pallas kernel of the
+// JAX package (src/repro/kernels/):
 //
 //   fedadc_threshold_select  q = v*1[|v| >= tau_row] ; r = v - q
 //       replaces compress.py:threshold_select_2d (_threshold_kernel)
 //       12 B/element in fp32 (read v; write q, r), 6 B in bf16
-//   fedadc_qsgd              y = |v|*s/scale_row ; level = floor(y) + 1[u < frac(y)]
+//   fedadc_qsgd_leaves       y = |v|*s/scale_row ; level = floor(y) + 1[u < frac(y)]
 //                            q = sign(v)*level*scale_row/s ; r = v - q
-//       replaces compress.py:qsgd_2d (_qsgd_kernel)
-//       16 B/element in fp32 (read v, u; write q, r), 8 B in bf16
+//       for every leaf of a table (a sweep over a tree, or one leaf), each
+//       row's scale max|v| computed in the call or given; replaces
+//       compress.py:qsgd_2d (_qsgd_kernel)
+//       16 B/element in fp32 (read v, u; write q, r), 8 B in bf16; with
+//       the scales computed 20 B (v read twice), 10 B in bf16
 //   fedadc_sparse_reduce_leaves  out_l = sum_c w[c] * scatter_add(values_lc @ indices_lc)
 //       for every leaf l of a table; replaces
 //       sparse_reduce.py:sparse_reduce_2d (_sparse_reduce_kernel)
 //       K*k*(value + 4 B index) read, the output written once
 //
-// All three are far under one operation per byte, so memory bounds them.
+// All are far under one operation per byte, so memory bounds them.
 //
-// The select and QSGD take a leaf stacked over the round's clients as one
-// flat (rows, n) buffer with one scalar per row (the threshold, the scale),
-// so a whole stacked leaf is one launch: blockIdx.y is the row, a
-// grid-stride loop over x covers the row's n elements, neighbouring threads
-// on neighbouring elements. No (rows, 128) tiling and no lane padding.
+// The select takes a leaf stacked over the round's clients as one flat
+// (rows, n) buffer with one threshold per row, so a whole stacked leaf is
+// one launch: blockIdx.y is the row, a grid-stride loop over x covers the
+// row's n elements, neighbouring threads on neighbouring elements. No
+// (rows, 128) tiling and no lane padding.
+// The QSGD table takes every leaf of a sweep at once (leaf_table.cuh): a
+// block owns kQsgdTile elements of one row of one leaf, and a group of 64
+// leaves is two kernels, the rows' scales (the max of |v| by atomicMax on
+// the bits of non-negative floats: exact in any order, NaN propagating as
+// in torch.amax) into a zeroed fp32 buffer, then the quantisation; the
+// host's per-leaf amax launches and trips through Python go.
 //
 // Arithmetic matches the plain PyTorch versions (repro_torch/kernels/ref.py)
 // bit for bit. Every multiply, add and divide is rounded on its own
@@ -96,6 +105,7 @@ constexpr int kApplyItems = 4;               // pairs a thread a segment
 constexpr int kSegment = kApplyThreads * kApplyItems;
 constexpr int kApplySmem = kTile * (sizeof(float) + sizeof(int));
 constexpr int kMaxSmem = 232448;             // a block's shared memory on sm_90
+constexpr int kQsgdTile = 4096;              // a QSGD table block's elements
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -139,28 +149,131 @@ __global__ void threshold_kernel(const T* __restrict__ v,
   }
 }
 
+// A row's factors from its scale, each rounded to T: inv = s / max(scale,
+// 1e-30) where scale > 0, else 0, and scale / s.
 template <typename T>
-__global__ void qsgd_kernel(const T* __restrict__ v, const T* __restrict__ u,
-                            const T* __restrict__ scale, T* __restrict__ q,
-                            T* __restrict__ r, int64_t n, float s_levels) {
-  const int64_t base = blockIdx.y * n;
-  const float sc = load(scale, blockIdx.y);
+__device__ __forceinline__ void qsgd_factors(float sc, float s_levels,
+                                             float* inv, float* scale_over_s) {
   const float s = rnd<T>(s_levels);
-  // inv = s / max(scale, 1e-30) where scale > 0, else 0; scale_over_s = scale / s
-  const float inv =
-      sc > 0.0f ? rnd<T>(__fdiv_rn(s, fmaxf(sc, rnd<T>(1e-30f)))) : 0.0f;
-  const float scale_over_s = rnd<T>(__fdiv_rn(sc, s));
-  FOR_EACH_IN_ROW(i, n) {
-    float x = load(v, base + i);
-    float y = rnd<T>(__fmul_rn(fabsf(x), inv));
-    float lower = floorf(y);
-    float frac = rnd<T>(__fsub_rn(y, lower));
-    float level = rnd<T>(__fadd_rn(lower, load(u, base + i) < frac ? 1.0f : 0.0f));
-    float sgn = (float)((0.0f < x) - (x < 0.0f));
-    float qv = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(sgn, level)), scale_over_s));
-    store(q, base + i, qv);
-    store(r, base + i, __fsub_rn(x, qv));
+  *inv = sc > 0.0f ? rnd<T>(__fdiv_rn(s, fmaxf(sc, rnd<T>(1e-30f)))) : 0.0f;
+  *scale_over_s = rnd<T>(__fdiv_rn(sc, s));
+}
+
+// One element of QSGD: y = |x|·inv, level = floor(y) + 1[u < frac(y)],
+// q = sign(x)·level·scale/s, every operation rounded to T on its own
+// -> q, and r = x - q through `r_out`.
+template <typename T>
+__device__ __forceinline__ float qsgd_elem(float x, float uu, float inv,
+                                           float scale_over_s, float* r_out) {
+  const float y = rnd<T>(__fmul_rn(fabsf(x), inv));
+  const float lower = floorf(y);
+  const float frac = rnd<T>(__fsub_rn(y, lower));
+  const float level = rnd<T>(__fadd_rn(lower, uu < frac ? 1.0f : 0.0f));
+  const float sgn = (float)((0.0f < x) - (x < 0.0f));
+  const float qv =
+      rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(sgn, level)), scale_over_s));
+  *r_out = __fsub_rn(x, qv);
+  return qv;
+}
+
+using leaf_table::QsgdTable;
+
+// The leaf, row and element range of a block of the QSGD table's grid: a
+// leaf's blocks are its rows times the kQsgdTile-element tiles of a row.
+struct QsgdRef {
+  int leaf;
+  int64_t row, lo, hi, n;
+};
+
+__device__ __forceinline__ QsgdRef qsgd_ref(const QsgdTable& t) {
+  QsgdRef r;
+  r.leaf = leaf_table::find_leaf(t.block_end, t.n_leaves, blockIdx.x);
+  const int64_t local =
+      blockIdx.x - leaf_table::start_of(t.block_end, r.leaf);
+  r.n = t.n[r.leaf];
+  const int64_t tiles = (r.n + kQsgdTile - 1) / kQsgdTile;
+  r.row = local / tiles;
+  r.lo = (local % tiles) * kQsgdTile;
+  r.hi = min(r.n, r.lo + kQsgdTile);
+  return r;
+}
+
+// scale_bits[row] = max(scale_bits[row], the bits of max |v| over the
+// block's tile), the rows numbered across the table (row_end).  Non-negative
+// floats order as their bits, so the integer max is the float max whatever
+// the order of the blocks; a NaN (sign cleared by fabsf) has larger bits
+// than +inf, so a row holding one gets a NaN scale, as torch.amax gives.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+qsgd_amax_kernel(const __grid_constant__ QsgdTable t,
+                 unsigned* __restrict__ scale_bits) {
+  __shared__ unsigned warp_max[kThreads / 32];
+  const QsgdRef r = qsgd_ref(t);
+  const T* v = static_cast<const T*>(t.v[r.leaf]) + r.row * r.n;
+  unsigned m = 0;
+#pragma unroll
+  for (int k = 0; k < kQsgdTile / kThreads; ++k) {
+    const int64_t i = r.lo + k * kThreads + threadIdx.x;
+    if (i < r.hi) m = max(m, __float_as_uint(fabsf(load(v, i))));
   }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kThreads / 32; ++w) m = max(m, warp_max[w]);
+    atomicMax(scale_bits + leaf_table::start_of(t.row_end, r.leaf) + r.row, m);
+  }
+}
+
+// QSGD of every leaf of the table with each row's fp32 scale.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+qsgd_leaves_kernel(const __grid_constant__ QsgdTable t,
+                   const float* __restrict__ scale, float s_levels) {
+  const QsgdRef r = qsgd_ref(t);
+  const int64_t base = r.row * r.n;
+  const T* v = static_cast<const T*>(t.v[r.leaf]) + base;
+  const T* u = static_cast<const T*>(t.u[r.leaf]) + base;
+  T* q = static_cast<T*>(t.q[r.leaf]) + base;
+  T* rr = static_cast<T*>(t.r[r.leaf]) + base;
+  float inv, scale_over_s;
+  qsgd_factors<T>(scale[leaf_table::start_of(t.row_end, r.leaf) + r.row],
+                  s_levels, &inv, &scale_over_s);
+#pragma unroll
+  for (int k = 0; k < kQsgdTile / kThreads; ++k) {
+    const int64_t i = r.lo + k * kThreads + threadIdx.x;
+    if (i >= r.hi) break;
+    float rv;
+    store(q, i, qsgd_elem<T>(load(v, i), load(u, i), inv, scale_over_s, &rv));
+    store(rr, i, rv);
+  }
+}
+
+template <typename T>
+int launch_qsgd_leaves(const int64_t* rows, int64_t n_leaves, void* out,
+                       float* scale, int compute_scale, float s_levels,
+                       cudaStream_t s) {
+  for (int64_t g = 0; g < n_leaves; g += leaf_table::kMaxLeaves) {
+    const int n = (int)(n_leaves - g < leaf_table::kMaxLeaves
+                            ? n_leaves - g : leaf_table::kMaxLeaves);
+    QsgdTable t;
+    if (!leaf_table::make_qsgd_table(rows + g * leaf_table::kQsgdCols, n,
+                                     kQsgdTile, out, &t))
+      return (int)cudaErrorInvalidValue;
+    const int blocks = t.block_end[n - 1], n_rows = t.row_end[n - 1];
+    if (compute_scale && n_rows) {
+      cudaError_t e = cudaMemsetAsync(scale, 0, n_rows * sizeof(float), s);
+      if (e != cudaSuccess) return (int)e;
+    }
+    if (blocks) {
+      if (compute_scale)
+        qsgd_amax_kernel<T><<<blocks, kThreads, 0, s>>>(t, (unsigned*)scale);
+      qsgd_leaves_kernel<T><<<blocks, kThreads, 0, s>>>(t, scale, s_levels);
+    }
+    scale += n_rows;
+  }
+  return (int)cudaGetLastError();
 }
 
 using leaf_table::SparseTable;
@@ -601,23 +714,22 @@ int fedadc_threshold_select(const void* v, const void* thresh, void* q,
   return (int)cudaGetLastError();
 }
 
-int fedadc_qsgd(const void* v, const void* u, const void* scale, void* q,
-                void* r, int64_t rows, int64_t n, float s_levels, int dtype,
-                void* stream) {
+// rows: n_leaves host rows of leaf_table::kQsgdCols int64 (v, u, q and r
+// byte offsets into out, n, ends of rows and blocks); scale: one fp32 a row
+// of the table (the rows of every group, in order), computed here as each
+// row's max |v| when compute_scale, else read.
+int fedadc_qsgd_leaves(const int64_t* rows, int64_t n_leaves, void* out,
+                       void* scale, int compute_scale, float s_levels,
+                       int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kF32) {
-    qsgd_kernel<float><<<row_grid(n, rows), kThreads, 0, s>>>(
-        (const float*)v, (const float*)u, (const float*)scale, (float*)q,
-        (float*)r, n, s_levels);
-  } else if (dtype == kBF16) {
-    qsgd_kernel<__nv_bfloat16><<<row_grid(n, rows), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)v, (const __nv_bfloat16*)u,
-        (const __nv_bfloat16*)scale, (__nv_bfloat16*)q, (__nv_bfloat16*)r, n,
-        s_levels);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == kF32)
+    return launch_qsgd_leaves<float>(rows, n_leaves, out, (float*)scale,
+                                     compute_scale, s_levels, s);
+  if (dtype == kBF16)
+    return launch_qsgd_leaves<__nv_bfloat16>(rows, n_leaves, out,
+                                             (float*)scale, compute_scale,
+                                             s_levels, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // rows: n_leaves host rows of leaf_table::kSparseCols int64 (values,

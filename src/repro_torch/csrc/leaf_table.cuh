@@ -15,11 +15,14 @@
 // leaf: the row's fields in the order of the struct's members, the ends
 // restarting from 0 at every kMaxLeaves-th leaf.  A C entry point walks
 // the rows kMaxLeaves at a time, builds one struct from each group and
-// launches once per group.  Both structs stay well under the 4 KB limit of
-// a kernel's parameters (AxpyTable 2.6 KB, SparseTable 3.3 KB).
+// launches once per group.  The structs stay under the 4 KB limit of a
+// kernel's parameters (AxpyTable 2.6 KB, SparseTable 3.3 KB, QsgdTable
+// 3.0 KB: int32 ends, since 64 leaves of seven int64 fields would be 3.6 KB
+// before the kernel's other parameters).
 #pragma once
 
 #include <stdint.h>
+#include <limits.h>
 
 namespace leaf_table {
 
@@ -55,6 +58,23 @@ struct SparseTable {
   int32_t chunk_end[kMaxLeaves];
   int32_t mat_end[kMaxLeaves];
   int32_t pair_end[kMaxLeaves];
+  int n_leaves;
+};
+
+// The QSGD table: per leaf its stacked (rows, n) operand v and draws u,
+// the outputs q and r (byte offsets into the call's output buffer), n, and
+// two ends: rows (numbering each leaf's rows across the group, the index of
+// its per-row scale) and blocks (rows x tiles of a row).
+// Host row: v, u, q offset, r offset, n, row end, block end.
+constexpr int kQsgdCols = 7;
+struct QsgdTable {
+  const void* v[kMaxLeaves];
+  const void* u[kMaxLeaves];
+  void* q[kMaxLeaves];
+  void* r[kMaxLeaves];
+  int64_t n[kMaxLeaves];
+  int32_t row_end[kMaxLeaves];
+  int32_t block_end[kMaxLeaves];
   int n_leaves;
 };
 
@@ -123,6 +143,29 @@ inline bool make_sparse_table(const int64_t* rows, int n, int64_t tile,
     t->chunk_end[i] = (int32_t)chunks;
     t->mat_end[i] = (int32_t)mat;
     t->pair_end[i] = (int32_t)pairs;
+  }
+  return true;
+}
+
+inline bool make_qsgd_table(const int64_t* rows, int n, int64_t tile,
+                            void* out, QsgdTable* t) {
+  *t = QsgdTable{};
+  t->n_leaves = n;
+  int64_t prev_rows = 0, prev_blocks = 0;
+  for (int i = 0; i < n; ++i) {
+    const int64_t* r = rows + (int64_t)i * kQsgdCols;
+    t->v[i] = (const void*)(intptr_t)r[0];
+    t->u[i] = (const void*)(intptr_t)r[1];
+    t->q[i] = static_cast<char*>(out) + r[2];
+    t->r[i] = static_cast<char*>(out) + r[3];
+    t->n[i] = r[4];
+    if (r[4] < 0 || r[5] < prev_rows || r[5] > INT32_MAX ||
+        r[6] > INT32_MAX || r[6] - prev_blocks != (r[5] - prev_rows) *
+                                                      cdiv(r[4], tile))
+      return false;
+    prev_rows = r[5], prev_blocks = r[6];
+    t->row_end[i] = (int32_t)r[5];
+    t->block_end[i] = (int32_t)r[6];
   }
   return true;
 }

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) kernel for the Mamba2 chunked SSD scan.
+// Hopper (sm_90a) kernels for the Mamba2 chunked SSD scan.
 //
-//   fedadc_ssd_scan   per (batch, head), over chunks of Q positions in order,
-//       with acum the running sum of the log decay a within the chunk:
+//   fedadc_ssd_scan   per (batch, head), over chunks of Q positions, with
+//       acum the running sum of the log decay a within the chunk:
 //         y_i = sum_{j <= i} (C_i . B_j) exp(acum_i - acum_j) x_j
 //               + exp(acum_i) C_i h                        (intra + carried)
 //         h  <- exp(acum_end) h + sum_j B_j^T exp(acum_end - acum_j) x_j
@@ -15,262 +15,835 @@
 // y (b, L, H, P): the model's own layout, read with strides (the TPU kernel
 // took (b, H, L, .) and its caller transposed).
 //
-// Bound. Per (batch, head, chunk) the work is about 2Q^2N + 2Q^2P + 4QNP
-// flops counting the whole Q x Q tile (half of it is causally masked and
-// skipped here); at zamba2-1.2b's prefill shape (b 4, L 2048, H 64, P 64,
-// N 64, Q 256) that is ~4.3e10 flops, 0.64 ms at 67 TFLOP/s of fp32, against
-// ~0.54 GB of operands and output, 0.16 ms at 3.35 TB/s: bound by
-// operations.
+// Bound. Per (batch, head, chunk of q positions) the work is (q² + q)(N + P)
+// flops for the causal scores and their product with x and 4qNP for the
+// carried term and the state; at zamba2-1.2b's prefill shape (b 4, L 2048,
+// H 64, P 64, N 64, Q 256) that is 2.6e10 flops, 0.39 ms at 67 TFLOP/s of
+// fp32 and 0.026 ms at 989 TFLOP/s of bf16, against 0.34 GB of operands and
+// output (0.10 ms at 3.35 TB/s with B, C and y in bf16): operations bound
+// the fp32 route, bytes the bf16 route.
 //
-// Design. The TPU kernel carries h across a sequential grid axis in VMEM
-// scratch. Here one 256-thread block owns one (batch, head) and loops over
-// its chunks in order, h (64 x 64 fp32, 16 KB) staying in shared memory
-// throughout. Each chunk stages x (Q x 64) and B (Q x (N+1)) in shared
-// memory with the running sums of a (a block-wide scan), then walks query
-// tiles of 64 rows: the Q x Q score tile (256 KB at Q 256, more than the
-// 227 KB a block may have) is never staged whole; for each query tile the
-// block computes the carried term exp(acum_i) C_i h and then, per key tile
-// of 64 at or below the diagonal, the 64 x 64 gated scores into shared
-// memory and their product with x. Thread t owns rows 4·(t/16)..+3 and
-// columns t%16 + 16·j of each 64 x 64 tile. After the last query tile the
-// block folds the chunk into h. Positions past L (a ragged last chunk, as
-// the Pallas kernel's cdiv grid gives) load as zeros: x, B and C zero and
-// a 0, so they change neither y nor h, and their rows are not written.
-// Shared memory is ~186 KB at Q 256, N 64, so one block runs on an SM; at
-// batch 1 zamba2 has 64 (batch, head) blocks for 132 SMs. Splitting the
-// chunks over blocks (the state passing in a second pass) is later work.
+// Design: the state-passing form, three kernels a call, each parallel over
+// the chunks (the TPU kernel carries h along a sequential grid axis, which a
+// GPU would run as b·H blocks walking their chunks in order: 64 blocks for
+// 132 SMs at batch 1).
+//   1. states  one block a (batch, head, chunk): the running sums acum of
+//              the chunk's a in double (a block scan), written to scratch,
+//              exp(acum_end) to scratch, and the chunk's state
+//              S_c = B^T (exp(acum_end - acum) x), N x P in fp32, to scratch;
+//   2. carry   one thread four state elements of one (batch, head):
+//              h_c = exp(acum_end,c) h_{c-1} + S_c along the chunks, each S_c
+//              overwritten in place by the state before the chunk, the loads
+//              of 16 chunks in flight;
+//   3. outputs one block a (batch, head, chunk, query tile of 64 rows): the
+//              carried term exp(acum_i) C_i h_prev, then the key tiles at or
+//              below the diagonal. Blocks go chunk by chunk, so that the
+//              query tiles of a chunk, which read the same key tiles, run
+//              together and find them in L2; within a chunk the heaviest
+//              first (the last query tile carries 4 key tiles at Q 256).
+// The wrapper allocates the scratch: acum, (b, H, chunks, Qpad) doubles, the
+// states, (b, H, chunks, 64, 64) fp32 (33.5 MB at the prefill shape), and
+// the decays, (b, H, chunks) fp32. At the prefill shape the grids are 2048,
+// 2048 and 8192 blocks; at L 32768, batch 1, 8192, 512 and 32768.
+//
+// The gates. The running sums reach about -1e4 within a 256-step chunk at
+// zamba2's decays; in fp32 their low digits would be lost (7.5e-5 of the
+// output against the 2e-5 bar). So acum stays in double everywhere a gate
+// is formed: exp(acum_i - acum_j), exp(acum_end - acum_j) and exp(acum_i)
+// take the difference in double and round once to fp32 (expf; ex2 on the
+// bf16 route's scores), or exp() in double for the per-row and per-chunk
+// factors. Every gate is at most 1, and one that underflows is 0, never
+// NaN. Positions past L (a ragged last chunk) or past the chunk (Q not a
+// multiple of 64) load as zeros (x, B, C, and a 0, so acum stays finite),
+// change neither y nor h, and their rows are not written.
+//
+// fp32 (B and C fp32): the CUDA cores, since serving's contract keeps TF32
+// off. 128 threads a block; in the outputs thread (r, c) of an 8 x 16 grid
+// owns rows r + 8i (i < 8) and keys c + 16j (j < 4) of a 64 x 64 score
+// tile, and columns 4c..4c+3 of the 64 x P output rows: 8 x 4 register
+// tiles, each float4 load of shared memory feeding 8 to 32 FMAs (in the
+// states, state rows 8r..8r+7 and columns 4c..4c+3). The key tiles of B and
+// x are double-buffered by cp.async. A warp's score rows are the rows its
+// own threads need for the product with x, so the gated scores pass through
+// shared memory with a __syncwarp, and a key tile costs one block barrier.
+// ~104 KB of shared memory an outputs block: two blocks an SM.
+//
+// bf16 (B and C bf16): the tensor cores, one warpgroup a block, wgmma on
+// bf16 operands in the 128-byte swizzle with fp32 accumulators. Outputs:
+// S = C·B^T (both K-major), the gate in fp32 on the accumulator, P·x with P
+// from registers and x MN-major; the carried term C·h is a product into the
+// same accumulator before the rows are scaled by exp(acum_i). States:
+// B^T·(w x) with B^T and w x MN-major (the transpose bits). B and C are
+// copied by cp.async into the swizzle; x·dt and h are fp32 in memory (TMA
+// cannot convert), so they are copied as they are and the block rounds
+// them to bf16 in shared memory, keeping each value's rounding error as a
+// second bf16 operand (x = x_hi + x_lo, P likewise): P·x = P_hi·x_hi +
+// P_hi·x_lo + P_lo·x_hi, C·h = C·h_hi + C·h_lo, B^T(w x) = B^T (w x)_hi +
+// B^T (w x)_lo. That keeps the products to ~2^-16 relative, as close to
+// the fp32 route as the bf16 output allows, at three times the tensor-core
+// work of P·x, which the bytes bound leaves room for; x costs its 4 bytes a
+// read (no bf16 copy of it is made). The outputs block keeps one stage of
+// each operand (51 KB, four blocks an SM): the next key tile's x is copied
+// once this tile's is rounded, its B once this tile's scores are taken,
+// both while the products run.
 // Limits: P <= 64, N <= 64, Q <= 256.
 //
-// x and a fp32; B and C fp32 or bf16; y fp32 or bf16; arithmetic and
-// accumulation fp32, except the running sums of a, which are kept in double
-// (see the scan below). Exact expf and exp, no fast-math intrinsics.
-// Launches on the given stream, does not synchronise, returns
-// cudaGetLastError().
+// Exact expf and exp elsewhere, no fast-math flags. Launches on the given
+// stream, does not synchronise, returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kT = 64;              // query and key tile
-constexpr int kTS = kT + 1;         // padded row of the score tile
-constexpr int kMaxP = 64;           // x and h row stride (P <= 64)
+using namespace hopper;
+
+constexpr int kThreads = 128;       // every kernel: one warpgroup a block
+constexpr int kT = 64;              // positions a tile
+constexpr int kMaxP = 64;
 constexpr int kMaxN = 64;
 constexpr int kMaxQ = 256;
+constexpr int kState = kMaxN * kMaxP;   // floats of one padded chunk state
+constexpr int kLd = kT + 4;         // padded row of an fp32 C, B or P tile
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
-__device__ __forceinline__ float load(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
+// Where one call's operands and scratch are, and its geometry.
+struct Args {
+  const float* x;
+  const float* a;
+  const void* B;
+  const void* C;
+  void* y;
+  double* acum;      // (b·H, chunks, Qpad)
+  float* state;      // (b·H, chunks, 64, 64)
+  float* decay;      // (b·H, chunks): exp(acum_end) of each chunk
+  int L, H, P, N, Q, Qpad, nc, bh;
+  int vec_x, vec_bc;  // rows 16-byte aligned: copies of 16 bytes
+};
+
+// One (batch, head, chunk): its base offsets and the rows the chunk holds.
+struct Chunk {
+  int64_t pos;       // (b·L + t0)·H + h: position t0 of (b, h), in units
+  int rows;          // positions of the chunk before L
+  int64_t scratch;   // (b·H + h)·chunks + c
+};
+
+__device__ __forceinline__ Chunk chunk_of(const Args& g, int bh, int c) {
+  Chunk k;
+  const int b = bh / g.H, h = bh % g.H, t0 = c * g.Q;
+  k.pos = ((int64_t)b * g.L + t0) * g.H + h;
+  k.rows = min(g.Q, g.L - t0);
+  k.scratch = (int64_t)bh * g.nc + c;
+  return k;
 }
-__device__ __forceinline__ void store(float* p, int64_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
-size_t smem_bytes(int Qpad, int N) {
-  // acum (double), x, B, exp(acum), decay-to-end weights, h, one C tile,
-  // one score tile
-  return sizeof(double) * (size_t)Qpad +
-         sizeof(float) * ((size_t)Qpad * kMaxP + (size_t)Qpad * (N + 1) +
-                          2 * (size_t)Qpad + kMaxN * kMaxP + kT * (N + 1) +
-                          kT * kTS);
+// The running sums of a over one chunk (rows at or past its end add 0) in
+// double, into acum[0, Qpad) in shared memory and into the scratch, each
+// row's weight exp(acum_end - acum) into w, and exp(acum_end) into the
+// scratch: two entries a thread, a warp scan, the four warps' totals through
+// ws (4 doubles of shared memory).
+__device__ void chunk_sums(const Args& g, const Chunk& k, double* acum,
+                           double* ws, float* w) {
+  const int i0 = 2 * threadIdx.x, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float* a = g.a + k.pos;
+  const double v0 = i0 < k.rows ? (double)a[(int64_t)i0 * g.H] : 0.0;
+  const double v1 =
+      i0 + 1 < k.rows ? (double)a[(int64_t)(i0 + 1) * g.H] : 0.0;
+  double x = v0 + v1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) ws[warp] = x;
+  __syncthreads();
+  double before = x - (v0 + v1);
+  for (int i = 0; i < warp; ++i) before += ws[i];
+  if (i0 < g.Qpad) acum[i0] = before + v0;
+  if (i0 + 1 < g.Qpad) acum[i0 + 1] = before + v0 + v1;
+  __syncthreads();
+  double* out = g.acum + k.scratch * g.Qpad;
+  const double a_end = acum[g.Q - 1];
+  for (int i = threadIdx.x; i < g.Qpad; i += kThreads) {
+    out[i] = acum[i];
+    w[i] = expf((float)(a_end - acum[i]));
+  }
+  if (threadIdx.x == 0) g.decay[k.scratch] = (float)exp(a_end);
 }
 
-template <typename TB, typename TY>
-__global__ void __launch_bounds__(kThreads)
-ssd_fwd(const float* __restrict__ x, const float* __restrict__ a,
-        const TB* __restrict__ Bm, const TB* __restrict__ Cm,
-        TY* __restrict__ y, int L, int H, int P, int N, int Q) {
-  const int Qpad = (Q + kT - 1) / kT * kT;
-  const int NS = N + 1;
-  extern __shared__ double smem_d[];
-  double* acum = smem_d;               // [Qpad] running sum of a
-  float* xs = reinterpret_cast<float*>(acum + Qpad);  // [Qpad][kMaxP]
-  float* Bs = xs + Qpad * kMaxP;       // [Qpad][NS]
-  float* gq = Bs + Qpad * NS;          // [Qpad] exp(acum_i)
-  float* wend = gq + Qpad;             // [Qpad] exp(acum_end - acum_j)
-  float* hs = wend + Qpad;             // [kMaxN][kMaxP]
-  float* Cs = hs + kMaxN * kMaxP;      // [kT][NS]
-  float* Ss = Cs + kT * NS;            // [kT][kTS]
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, hh = bh % H;
-  const int tid = threadIdx.x;
-  const int r4 = (tid / 16) * 4;
-  const int c = tid % 16;
-
-  // position t of this (batch, head): x at xb + t*x_row, etc.
-  const int64_t x_row = (int64_t)H * P, n_row = (int64_t)H * N;
-  const float* xb = x + ((int64_t)b * L * H + hh) * P;
-  const float* ab = a + (int64_t)b * L * H + hh;
-  const TB* Bb = Bm + ((int64_t)b * L * H + hh) * N;
-  const TB* Cb = Cm + ((int64_t)b * L * H + hh) * N;
-  TY* yb = y + ((int64_t)b * L * H + hh) * P;
-
-  for (int i = tid; i < kMaxN * kMaxP; i += kThreads) hs[i] = 0.f;
-
-  const int n_chunks = (L + Q - 1) / Q;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int t0 = ch * Q;
-    __syncthreads();                  // the last chunk's state update is done
-    // running sum of a over the chunk (Hillis-Steele, one element a
-    // thread), in double: the gates are exp of differences of these sums,
-    // which reach some -1e4 over a chunk, and fp32 would lose their low
-    // digits (7e-5 of the output at zamba2's decays, over the 2e-5 bar)
-    double av = 0.0;
-    if (tid < Q && t0 + tid < L) av = ab[(int64_t)(t0 + tid) * H];
-    if (tid < Qpad) acum[tid] = av;
-    __syncthreads();
-    for (int off = 1; off < Qpad; off <<= 1) {
-      const double add = (tid < Qpad && tid >= off) ? acum[tid - off] : 0.0;
-      __syncthreads();
-      if (tid < Qpad) acum[tid] += add;
-      __syncthreads();
-    }
-    for (int i = tid; i < Qpad * kMaxP; i += kThreads) {
-      const int row = i / kMaxP, p = i % kMaxP, t = t0 + row;
-      xs[i] = (row < Q && p < P && t < L) ? xb[t * x_row + p] : 0.f;
-    }
-    for (int i = tid; i < Qpad * NS; i += kThreads) {
-      const int row = i / NS, n = i % NS, t = t0 + row;
-      Bs[i] = (row < Q && n < N && t < L) ? load(Bb, t * n_row + n) : 0.f;
-    }
-    const double a_end = acum[Q - 1];
-    if (tid < Qpad) {
-      gq[tid] = (float)exp(acum[tid]);
-      wend[tid] = (float)exp(a_end - acum[tid]);
-    }
-    __syncthreads();
-
-    for (int q0 = 0; q0 < Q; q0 += kT) {
-      for (int i = tid; i < kT * NS; i += kThreads) {
-        const int row = i / NS, n = i % NS, t = t0 + q0 + row;
-        Cs[i] = (q0 + row < Q && n < N && t < L) ? load(Cb, t * n_row + n)
-                                                 : 0.f;
-      }
-      __syncthreads();
-      // carried state: exp(acum_i) C_i h
-      float acc[4][4];
+// Rows [r0, r0 + 64) of an fp32 operand whose row i is at src + i·row
+// (rows at or past `rows` and columns at or past `width` zero) into a
+// 64 x 64 tile of `ld` floats a row: by cp.async 16 bytes at a time where
+// `vec`, else by plain loads (both land before the caller's wait and
+// barrier).
+__device__ __forceinline__ void stage_f32(float* dst, int ld,
+                                          const float* src, int64_t row,
+                                          int r0, int rows, int width,
+                                          int vec) {
+  for (int e = threadIdx.x; e < kT * 16; e += kThreads) {
+    const int r = e / 16, c4 = (e % 16) * 4;
+    const bool in = r0 + r < rows;
+    const float* s = src + (int64_t)(r0 + r) * row + c4;
+    if (vec) {
+      const bool ok = in && c4 < width;
+      cp_async16(smem_u32(dst + r * ld + c4), ok ? s : src, ok ? 16 : 0);
+    } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cv[4], hv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = Cs[(r4 + i) * NS + n];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) hv[j] = hs[n * kMaxP + c + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(cv[i], hv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float g = gq[q0 + r4 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= g;
-      }
-      // within the chunk: key tiles at or below the diagonal
-      for (int k0 = 0; k0 <= q0; k0 += kT) {
-        float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = Cs[(r4 + i) * NS + n];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = Bs[(k0 + c + 16 * j) * NS + n];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = fmaf(cv[i], bv[j], s[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = q0 + r4 + i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int kj = k0 + c + 16 * j;
-            Ss[(r4 + i) * kTS + c + 16 * j] =
-                kj <= qi ? s[i][j] * expf((float)(acum[qi] - acum[kj])) : 0.f;
-          }
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < kT; ++kk) {
-          float sv[4], xv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) sv[i] = Ss[(r4 + i) * kTS + kk];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) xv[j] = xs[(k0 + kk) * kMaxP + c + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(sv[i], xv[j], acc[i][j]);
-        }
-        __syncthreads();              // Ss is rewritten by the next key tile
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + r4 + i, t = t0 + row;
-        if (row >= Q || t >= L) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = c + 16 * j;
-          if (p < P) store(yb, t * x_row + p, acc[i][j]);
-        }
-      }
-      __syncthreads();                // Cs is reloaded by the next query tile
-    }
-
-    // fold the chunk into the state: h = exp(a_end) h + B^T (w x)
-    const float g_end = (float)exp(a_end);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = r4 + i;
-      if (n >= N) continue;
-      float hacc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) hacc[j] = 0.f;
-      for (int t = 0; t < Q; ++t) {
-        const float bw = Bs[t * NS + n] * wend[t];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          hacc[j] = fmaf(bw, xs[t * kMaxP + c + 16 * j], hacc[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float* hp = hs + n * kMaxP + c + 16 * j;
-        *hp = g_end * *hp + hacc[j];
-      }
+      for (int k = 0; k < 4; ++k)
+        dst[r * ld + c4 + k] = in && c4 + k < width ? s[k] : 0.f;
     }
   }
 }
 
-template <typename TB, typename TY>
-cudaError_t launch(const void* x, const void* a, const void* B, const void* C,
-                   void* y, int64_t batch, int64_t L, int64_t H, int64_t P,
-                   int64_t N, int64_t Q, cudaStream_t st) {
-  const int Qpad = (int)((Q + kT - 1) / kT * kT);
-  const size_t bytes = smem_bytes(Qpad, (int)N);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_fwd<TB, TY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return err;
-  ssd_fwd<TB, TY><<<(unsigned)(batch * H), kThreads, bytes, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(a),
-      static_cast<const TB*>(B), static_cast<const TB*>(C),
-      static_cast<TY*>(y), (int)L, (int)H, (int)P, (int)N, (int)Q);
+// The (batch·head, chunk, query tile) of an outputs block, chunk-major, so
+// that the query tiles of one chunk, which read the same key tiles, run
+// together and find them in L2; within a chunk the heaviest first (the last
+// query tile carries 4 key tiles at Q 256, the first one).
+__device__ __forceinline__ void out_block(const Args& g, int* bh, int* c,
+                                          int* qt) {
+  const int n_qt = g.Qpad / kT;
+  const int chunk = blockIdx.x / n_qt;
+  *qt = n_qt - 1 - (int)(blockIdx.x % n_qt);
+  *bh = chunk / g.nc;
+  *c = chunk % g.nc;
+}
+
+// -- the carry (both routes) --------------------------------------------------
+// One thread four state elements of one (batch, head): along the chunks,
+// the state before chunk c replaces S_c in place. The loads of 16 chunks
+// are in flight at once, since none depends on the carried sum.
+constexpr int kCarryVecs = kState / 4;            // float4s of a state
+constexpr int kCarryBlocks = kCarryVecs / kThreads;   // blocks a (b, h)
+
+__global__ void __launch_bounds__(kThreads)
+ssd_carry(float* __restrict__ state, const float* __restrict__ decay,
+          int nc) {
+  const int bh = blockIdx.x / kCarryBlocks;
+  const int e = (blockIdx.x % kCarryBlocks) * kThreads + threadIdx.x;
+  float4* s = reinterpret_cast<float4*>(state + (int64_t)bh * nc * kState) + e;
+  const float* d = decay + (int64_t)bh * nc;
+  float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+  constexpr int kAhead = 16;
+  for (int c0 = 0; c0 < nc; c0 += kAhead) {
+    float4 v[kAhead];
+    float g[kAhead];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k)
+      if (c0 + k < nc) {
+        v[k] = s[(int64_t)(c0 + k) * kCarryVecs];
+        g[k] = d[c0 + k];
+      }
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k)
+      if (c0 + k < nc) {
+        s[(int64_t)(c0 + k) * kCarryVecs] = h;
+        h.x = fmaf(g[k], h.x, v[k].x);
+        h.y = fmaf(g[k], h.y, v[k].y);
+        h.z = fmaf(g[k], h.z, v[k].z);
+        h.w = fmaf(g[k], h.w, v[k].w);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 on the CUDA cores
+// ---------------------------------------------------------------------------
+namespace f32 {
+
+// Shared memory of the states kernel: B and x key tiles, two stages each,
+// then acum (double) and the decay-to-end weights.
+constexpr size_t kStatesSmem =
+    sizeof(float) * (2 * 2 * kT * kT + kMaxQ) + sizeof(double) * (kMaxQ + 4);
+
+__global__ void __launch_bounds__(kThreads)
+ssd_states(const Args g) {
+  extern __shared__ float4 smem4[];
+  float* Bs = reinterpret_cast<float*>(smem4);   // [2][64][64]
+  float* Xs = Bs + 2 * kT * kT;                   // [2][64][64]
+  float* w = Xs + 2 * kT * kT;                    // [kMaxQ]
+  double* acum = reinterpret_cast<double*>(w + kMaxQ);  // [kMaxQ]
+  double* ws = acum + kMaxQ;                      // [4]
+
+  const int bh = blockIdx.x / g.nc, c = blockIdx.x % g.nc;
+  const Chunk k = chunk_of(g, bh, c);
+  const float* Bb = static_cast<const float*>(g.B) + k.pos * g.N;
+  const float* xb = g.x + k.pos * g.P;
+  const int64_t n_row = (int64_t)g.H * g.N, x_row = (int64_t)g.H * g.P;
+  const int tiles = (k.rows + kT - 1) / kT;
+
+  stage_f32(Bs, kT, Bb, n_row, 0, k.rows, g.N, g.vec_bc);
+  stage_f32(Xs, kT, xb, x_row, 0, k.rows, g.P, g.vec_x);
+  cp_async_commit();
+  chunk_sums(g, k, acum, ws, w);
+
+  // thread (r, c): state rows n = 8r..8r+7, columns p = 4c..4c+3
+  const int r = threadIdx.x / 16, cc = threadIdx.x % 16;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int kt = 0; kt < tiles; ++kt) {
+    const int st = kt & 1;
+    cp_async_wait_all();
+    __syncthreads();    // tile kt landed, tile kt - 1's stage is free
+    if (kt + 1 < tiles) {
+      stage_f32(Bs + (st ^ 1) * kT * kT, kT, Bb, n_row, (kt + 1) * kT,
+                k.rows, g.N, g.vec_bc);
+      stage_f32(Xs + (st ^ 1) * kT * kT, kT, xb, x_row, (kt + 1) * kT,
+                k.rows, g.P, g.vec_x);
+    }
+    cp_async_commit();
+    const float* Bt = Bs + st * kT * kT;
+    const float* Xt = Xs + st * kT * kT;
+    const float* wt = w + kt * kT;
+#pragma unroll 4
+    for (int t = 0; t < kT; ++t) {
+      const float4 b0 = *reinterpret_cast<const float4*>(Bt + t * kT + 8 * r);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(Bt + t * kT + 8 * r + 4);
+      float4 xv = *reinterpret_cast<const float4*>(Xt + t * kT + 4 * cc);
+      const float wv = wt[t];
+      xv.x *= wv; xv.y *= wv; xv.z *= wv; xv.w *= wv;
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(bv[i], xs[j], acc[i][j]);
+    }
+  }
+  cp_async_wait_all();
+  float* out = g.state + k.scratch * kState;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    *reinterpret_cast<float4*>(out + (8 * r + i) * kMaxP + 4 * cc) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+// Shared memory of the outputs kernel: the C tile, two stages of B, the
+// gated scores, two stages of x, then acum of the query rows and of two
+// key tiles (double).
+constexpr size_t kOutSmem = sizeof(float) * (4 * kT * kLd + 2 * kT * kT) +
+                            sizeof(double) * 3 * kT;
+
+template <typename TY>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_outputs(const Args g) {
+  extern __shared__ float4 smem4[];
+  float* Cs = reinterpret_cast<float*>(smem4);   // [64][kLd]
+  float* Bs = Cs + kT * kLd;                      // [2][64][kLd]
+  float* Ps = Bs + 2 * kT * kLd;                  // [64][kLd]
+  float* Xs = Ps + kT * kLd;                      // [2][64][64]
+  double* acq = reinterpret_cast<double*>(Xs + 2 * kT * kT);  // [64]
+  double* ack = acq + kT;                         // [2][64]
+
+  int bh, c, qt;
+  out_block(g, &bh, &c, &qt);
+  const Chunk k = chunk_of(g, bh, c);
+  const int q0 = qt * kT;
+  if (q0 >= k.rows) return;         // a query tile past L: nothing to write
+  const float* Bb = static_cast<const float*>(g.B) + k.pos * g.N;
+  const float* Cb = static_cast<const float*>(g.C) + k.pos * g.N;
+  const float* xb = g.x + k.pos * g.P;
+  const int64_t n_row = (int64_t)g.H * g.N, x_row = (int64_t)g.H * g.P;
+  const double* acum = g.acum + k.scratch * g.Qpad;
+  float* Hs = Bs + kT * kLd;        // h_prev in B's second stage, 64 a row
+
+  stage_f32(Cs, kLd, Cb, n_row, q0, k.rows, g.N, g.vec_bc);
+  stage_f32(Hs, kMaxP, g.state + k.scratch * kState, kMaxP, 0, kMaxN, kMaxP,
+            1);
+  stage_f32(Bs, kLd, Bb, n_row, 0, k.rows, g.N, g.vec_bc);
+  stage_f32(Xs, kT, xb, x_row, 0, k.rows, g.P, g.vec_x);
+  cp_async_commit();
+  if (threadIdx.x < kT) {
+    acq[threadIdx.x] = acum[q0 + threadIdx.x];
+    ack[threadIdx.x] = acum[threadIdx.x];
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int r = threadIdx.x / 16, cc = threadIdx.x % 16;
+  const int n4 = (g.N + 3) & ~3;
+  // the carried term exp(acum_i) C_i h_prev
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int n = 0; n < n4; n += 4) {
+    float4 cv[8], hv[4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      cv[i] = *reinterpret_cast<const float4*>(Cs + (r + 8 * i) * kLd + n);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      hv[t] = *reinterpret_cast<const float4*>(Hs + (n + t) * kMaxP + 4 * cc);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float cs[4] = {cv[i].x, cv[i].y, cv[i].z, cv[i].w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        acc[i][0] = fmaf(cs[t], hv[t].x, acc[i][0]);
+        acc[i][1] = fmaf(cs[t], hv[t].y, acc[i][1]);
+        acc[i][2] = fmaf(cs[t], hv[t].z, acc[i][2]);
+        acc[i][3] = fmaf(cs[t], hv[t].w, acc[i][3]);
+      }
+    }
+  }
+  double aq[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    aq[i] = acq[r + 8 * i];
+    const float gq = (float)exp(aq[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] *= gq;
+  }
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int st = kt & 1;
+    cp_async_wait_all();
+    __syncthreads();    // tile kt landed; tile kt - 1 (and h) are done with
+    if (kt < qt) {
+      stage_f32(Bs + (st ^ 1) * kT * kLd, kLd, Bb, n_row, (kt + 1) * kT,
+                k.rows, g.N, g.vec_bc);
+      stage_f32(Xs + (st ^ 1) * kT * kT, kT, xb, x_row, (kt + 1) * kT,
+                k.rows, g.P, g.vec_x);
+      if (threadIdx.x < kT)
+        ack[(st ^ 1) * kT + threadIdx.x] = acum[(kt + 1) * kT + threadIdx.x];
+    }
+    cp_async_commit();
+    const float* Bt = Bs + st * kLd * kT;
+    const float* Xt = Xs + st * kT * kT;
+    const double* akt = ack + st * kT;
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int n = 0; n < n4; n += 4) {
+      float4 cv[8], bv[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        cv[i] = *reinterpret_cast<const float4*>(Cs + (r + 8 * i) * kLd + n);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bv[j] = *reinterpret_cast<const float4*>(Bt + (cc + 16 * j) * kLd + n);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(cv[i].x, bv[j].x, s[i][j]);
+          s[i][j] = fmaf(cv[i].y, bv[j].y, s[i][j]);
+          s[i][j] = fmaf(cv[i].z, bv[j].z, s[i][j]);
+          s[i][j] = fmaf(cv[i].w, bv[j].w, s[i][j]);
+        }
+    }
+    // the gate, and the causal mask on the diagonal tile; a warp's rows are
+    // the rows its own threads read back below
+    const bool diag = kt == qt;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const double ak = akt[cc + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const bool keep = !diag || cc + 16 * j <= r + 8 * i;
+        Ps[(r + 8 * i) * kLd + cc + 16 * j] =
+            keep ? s[i][j] * expf((float)(aq[i] - ak)) : 0.f;
+      }
+    }
+    __syncwarp();
+#pragma unroll 4
+    for (int key = 0; key < kT; key += 4) {
+      float4 pv[8], xv[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (r + 8 * i) * kLd + key);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        xv[t] = *reinterpret_cast<const float4*>(Xt + (key + t) * kT + 4 * cc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float ps[4] = {pv[i].x, pv[i].y, pv[i].z, pv[i].w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          acc[i][0] = fmaf(ps[t], xv[t].x, acc[i][0]);
+          acc[i][1] = fmaf(ps[t], xv[t].y, acc[i][1]);
+          acc[i][2] = fmaf(ps[t], xv[t].z, acc[i][2]);
+          acc[i][3] = fmaf(ps[t], xv[t].w, acc[i][3]);
+        }
+      }
+    }
+    __syncwarp();       // the scores are read before the next tile's write
+  }
+  cp_async_wait_all();
+
+  TY* yb = static_cast<TY*>(g.y) + k.pos * g.P;
+  const int64_t y_row = (int64_t)g.H * g.P;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + r + 8 * i;
+    if (row >= k.rows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (4 * cc + j < g.P) store(yb + row * y_row + 4 * cc + j, acc[i][j]);
+  }
+}
+
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kTile = kT * 128;     // bytes of a 64 x 64 bf16 tile
+constexpr int kTileF = kT * kT * 4; // bytes of a 64 x 64 fp32 tile
+
+// Rows [r0, r0 + 64) of a bf16 operand (row i at src + i·row; rows at or
+// past `rows` and columns at or past `width` zero) into a swizzled tile:
+// by cp.async 16 bytes at a time where `vec`, else by plain loads.
+__device__ __forceinline__ void stage_bf16(uint8_t* tile,
+                                           const __nv_bfloat16* src,
+                                           int64_t row, int r0, int rows,
+                                           int width, int vec) {
+  for (int e = threadIdx.x; e < kT * 8; e += kThreads) {
+    const int r = e / 8, col = (e % 8) * 8;
+    const bool ok = r0 + r < rows && col < width;
+    const __nv_bfloat16* s = src + (int64_t)(r0 + r) * row + col;
+    if (vec) {
+      cp_async16(smem_u32(tile + swz(r, col)), ok ? s : src, ok ? 16 : 0);
+    } else {
+      __nv_bfloat16 tmp[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        tmp[k] = ok && col + k < width ? s[k] : __float2bfloat16_rn(0.f);
+      *reinterpret_cast<uint4*>(tile + swz(r, col)) =
+          *reinterpret_cast<const uint4*>(tmp);
+    }
+  }
+}
+
+// A staged 64 x 64 fp32 tile (64 floats a row), each row times w[r] where
+// w is given, rounded to bf16 into the swizzled `hi` and its rounding
+// error, rounded again, into `lo`.
+__device__ __forceinline__ void split(uint8_t* hi, uint8_t* lo,
+                                      const float* src, const float* w) {
+#pragma unroll
+  for (int it = 0; it < kT * 8 / kThreads; ++it) {
+    const int e = it * kThreads + threadIdx.x;
+    const int r = e / 8, col = (e % 8) * 8;
+    const float4 u = *reinterpret_cast<const float4*>(src + r * kT + col);
+    const float4 v = *reinterpret_cast<const float4*>(src + r * kT + col + 4);
+    float f[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+    if (w) {
+      const float wr = w[r];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) f[k] *= wr;
+    }
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat162 hv = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+      const float2 hf = __bfloat1622float2(hv);
+      h[k] = *reinterpret_cast<const uint32_t*>(&hv);
+      l[k] = pack_bf16(f[2 * k] - hf.x, f[2 * k + 1] - hf.y);
+    }
+    *reinterpret_cast<uint4*>(hi + swz(r, col)) =
+        make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + swz(r, col)) =
+        make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// The aligned start of dynamic shared memory (the swizzled tiles need
+// 1024-byte alignment; each kernel asks for 1024 bytes of slack).
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* smem) {
+  return smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+}
+
+// Shared memory: two stages of B (bf16) and of x (fp32, as loaded), the
+// bf16 halves of w x, then the weights and acum.
+constexpr size_t kStatesSmem = 1024 + 4 * kTile + 2 * kTileF +
+                               sizeof(float) * kMaxQ +
+                               sizeof(double) * (kMaxQ + 4);
+
+__global__ void __launch_bounds__(kThreads)
+ssd_states(const Args g) {
+  extern __shared__ uint8_t smem[];
+  uint8_t* base = aligned_smem(smem);
+  uint8_t* sB = base;                       // [2][64 positions][64 n]
+  uint8_t* sXh = base + 2 * kTile;          // [64 positions][64 p]
+  uint8_t* sXl = base + 3 * kTile;
+  float* sXf = reinterpret_cast<float*>(base + 4 * kTile);  // [2][64][64]
+  float* w = sXf + 2 * kT * kT;
+  double* acum = reinterpret_cast<double*>(w + kMaxQ);
+  double* ws = acum + kMaxQ;
+
+  const int bh = blockIdx.x / g.nc, c = blockIdx.x % g.nc;
+  const Chunk k = chunk_of(g, bh, c);
+  const __nv_bfloat16* Bb =
+      static_cast<const __nv_bfloat16*>(g.B) + k.pos * g.N;
+  const float* xb = g.x + k.pos * g.P;
+  const int64_t n_row = (int64_t)g.H * g.N, x_row = (int64_t)g.H * g.P;
+  const int tiles = (k.rows + kT - 1) / kT;
+
+  stage_bf16(sB, Bb, n_row, 0, k.rows, g.N, g.vec_bc);
+  stage_f32(sXf, kT, xb, x_row, 0, k.rows, g.P, g.vec_x);
+  cp_async_commit();
+  chunk_sums(g, k, acum, ws, w);
+
+  // the state (n rows, p columns) = B^T (w x): A = B^T and B = w x, both
+  // MN-major (the positions are the k axis)
+  float acc[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+  const uint32_t aXh = smem_u32(sXh), aXl = smem_u32(sXl);
+  for (int kt = 0; kt < tiles; ++kt) {
+    const int st = kt & 1;
+    cp_async_wait_all();
+    __syncthreads();    // tile kt landed; the last products are done
+    if (kt + 1 < tiles) {
+      stage_bf16(sB + (st ^ 1) * kTile, Bb, n_row, (kt + 1) * kT, k.rows,
+                 g.N, g.vec_bc);
+      stage_f32(sXf + (st ^ 1) * kT * kT, kT, xb, x_row, (kt + 1) * kT,
+                k.rows, g.P, g.vec_x);
+    }
+    cp_async_commit();
+    split(sXh, sXl, sXf + st * kT * kT, w + kt * kT);
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t aB = smem_u32(sB + st * kTile);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kT / 16; ++kk)
+      wgmma_ss<1, 1>(acc, mnmajor(aB + kk * 2048, 0),
+                     mnmajor(aXh + kk * 2048, 0), 1);
+#pragma unroll
+    for (int kk = 0; kk < kT / 16; ++kk)
+      wgmma_ss<1, 1>(acc, mnmajor(aB + kk * 2048, 0),
+                     mnmajor(aXl + kk * 2048, 0), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+  cp_async_wait_all();
+
+  // accumulator element j: row 16·warp + lane/4 + 8·((j/2)%2), column
+  // 8·(j/4) + 2·(lane%4) + j%2
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* out = g.state + k.scratch * kState;
+#pragma unroll
+  for (int j = 0; j < 32; j += 2) {
+    const int n = 16 * warp + lane / 4 + 8 * ((j / 2) % 2);
+    const int p = 8 * (j / 4) + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(out + n * kMaxP + p) =
+        make_float2(acc[j], acc[j + 1]);
+  }
+}
+
+// 2^x by the special-function unit (2 ulp, subnormal results flushed to
+// 0): the bf16 route's gate, e^d = 2^(d·log2 e), its error far under the
+// bf16 output's rounding.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory: C, B, the bf16 halves of x (of h first), x as loaded
+// (fp32; h first), then acum of the query rows and of two key tiles. One
+// stage each, so that four blocks share an SM: the next tile's x is loaded
+// once this tile's is split, its B once this tile's scores are taken, both
+// while the products run.
+constexpr size_t kOutSmem =
+    1024 + 4 * kTile + kTileF + sizeof(double) * 3 * kT;
+
+template <typename TY>
+__global__ void __launch_bounds__(kThreads, 4)
+ssd_outputs(const Args g) {
+  extern __shared__ uint8_t smem[];
+  uint8_t* base = aligned_smem(smem);
+  uint8_t* sC = base;                 // [64 queries][64 n]
+  uint8_t* sB = base + kTile;         // [64 keys][64 n]
+  uint8_t* sXh = base + 2 * kTile;    // [64 keys][64 p]; h_prev's [n][p]
+  uint8_t* sXl = base + 3 * kTile;
+  float* sXf = reinterpret_cast<float*>(base + 4 * kTile);      // [64][64]
+  double* acq = reinterpret_cast<double*>(sXf + kT * kT);       // [64]
+  double* ack = acq + kT;                                       // [2][64]
+
+  int bh, c, qt;
+  out_block(g, &bh, &c, &qt);
+  const Chunk k = chunk_of(g, bh, c);
+  const int q0 = qt * kT;
+  if (q0 >= k.rows) return;
+  const __nv_bfloat16* Bb =
+      static_cast<const __nv_bfloat16*>(g.B) + k.pos * g.N;
+  const __nv_bfloat16* Cb =
+      static_cast<const __nv_bfloat16*>(g.C) + k.pos * g.N;
+  const float* xb = g.x + k.pos * g.P;
+  const int64_t n_row = (int64_t)g.H * g.N, x_row = (int64_t)g.H * g.P;
+  const double* acum = g.acum + k.scratch * g.Qpad;
+  const uint32_t aC = smem_u32(sC), aB = smem_u32(sB);
+  const uint32_t aXh = smem_u32(sXh), aXl = smem_u32(sXl);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = 16 * warp + lane / 4, col0 = 2 * (lane % 4);
+
+  stage_bf16(sC, Cb, n_row, q0, k.rows, g.N, g.vec_bc);
+  stage_f32(sXf, kT, g.state + k.scratch * kState, kMaxP, 0, kMaxN, kMaxP,
+            1);
+  cp_async_commit();
+  if (threadIdx.x < kT) {
+    acq[threadIdx.x] = acum[q0 + threadIdx.x];
+    ack[threadIdx.x] = acum[threadIdx.x];
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  split(sXh, sXl, sXf, nullptr);
+  fence_async_smem();
+  __syncthreads();
+  // key tile 0 loads while the carried term is taken
+  stage_bf16(sB, Bb, n_row, 0, k.rows, g.N, g.vec_bc);
+  stage_f32(sXf, kT, xb, x_row, 0, k.rows, g.P, g.vec_x);
+  cp_async_commit();
+
+  // the carried term C·h (h MN-major: n is the k axis), then each row
+  // times exp(acum_i)
+  float o[32];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kMaxN / 16; ++kk)
+    wgmma_ss<0, 1>(o, kmajor(aC + kk * 32), mnmajor(aXh + kk * 2048, 0), kk);
+#pragma unroll
+  for (int kk = 0; kk < kMaxN / 16; ++kk)
+    wgmma_ss<0, 1>(o, kmajor(aC + kk * 32), mnmajor(aXl + kk * 2048, 0), 1);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(o);
+  double aq[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) aq[hf] = acq[row0 + 8 * hf];
+  const float gq[2] = {(float)exp(aq[0]), (float)exp(aq[1])};
+#pragma unroll
+  for (int j = 0; j < 32; ++j) o[j] *= gq[(j / 2) % 2];
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int st = kt & 1;
+    cp_async_wait_all();
+    __syncthreads();    // tile kt landed; the last products are done
+    split(sXh, sXl, sXf, nullptr);
+    fence_async_smem();
+    __syncthreads();
+    if (kt < qt) {      // x of the next tile, into the buffer just split
+      stage_f32(sXf, kT, xb, x_row, (kt + 1) * kT, k.rows, g.P, g.vec_x);
+      if (threadIdx.x < kT)
+        ack[(st ^ 1) * kT + threadIdx.x] = acum[(kt + 1) * kT + threadIdx.x];
+    }
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kMaxN / 16; ++kk)
+      wgmma_ss<0, 0>(s, kmajor(aC + kk * 32), kmajor(aB + kk * 32), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    __syncthreads();    // every thread's scores are taken: B may go
+    if (kt < qt)
+      stage_bf16(sB, Bb, n_row, (kt + 1) * kT, k.rows, g.N, g.vec_bc);
+    cp_async_commit();
+    // the gate on the accumulator, the causal mask on the diagonal tile
+    const bool diag = kt == qt;
+    const double* akt = ack + st * kT;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int row = row0 + 8 * ((j / 2) % 2);
+      const int col = 8 * (j / 4) + col0 + j % 2;
+      const bool keep = !diag || col <= row;
+      s[j] = keep ? s[j] * ex2((float)(aq[(j / 2) % 2] - akt[col]) * kLog2e)
+                  : 0.f;
+    }
+    // P = P_hi + P_lo in bf16: the accumulator's 16 columns of step kk are
+    // the A fragment of a k16 step
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float v0 = s[8 * kk + 2 * q], v1 = s[8 * kk + 2 * q + 1];
+        const __nv_bfloat162 hv = __floats2bfloat162_rn(v0, v1);
+        const float2 hf = __bfloat1622float2(hv);
+        ph[kk][q] = *reinterpret_cast<const uint32_t*>(&hv);
+        pl[kk][q] = pack_bf16(v0 - hf.x, v1 - hf.y);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn(o, ph[kk], mnmajor(aXh + kk * 2048, 0));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn(o, ph[kk], mnmajor(aXl + kk * 2048, 0));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_mn(o, pl[kk], mnmajor(aXh + kk * 2048, 0));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+  cp_async_wait_all();
+
+  TY* yb = static_cast<TY*>(g.y) + k.pos * g.P;
+  const int64_t y_row = (int64_t)g.H * g.P;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int row = q0 + row0 + 8 * ((j / 2) % 2);
+    const int p = 8 * (j / 4) + col0 + j % 2;
+    if (row < k.rows && p < g.P) store(yb + row * y_row + p, o[j]);
+  }
+}
+
+}  // namespace tc
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+// One route's three kernels: the shared memory asked for once per process.
+template <typename TY, bool kTc>
+cudaError_t launch(const Args& g, cudaStream_t st) {
+  constexpr auto states = kTc ? tc::ssd_states : f32::ssd_states;
+  constexpr auto outputs = kTc ? tc::ssd_outputs<TY> : f32::ssd_outputs<TY>;
+  constexpr size_t s_bytes = kTc ? tc::kStatesSmem : f32::kStatesSmem;
+  constexpr size_t o_bytes = kTc ? tc::kOutSmem : f32::kOutSmem;
+  static const cudaError_t once = [&] {
+    const cudaError_t e = allow_smem(states, s_bytes);
+    return e == cudaSuccess ? allow_smem(outputs, o_bytes) : e;
+  }();
+  if (once != cudaSuccess) return once;
+  const unsigned chunks = (unsigned)g.bh * g.nc;
+  states<<<chunks, kThreads, s_bytes, st>>>(g);
+  ssd_carry<<<(unsigned)g.bh * kCarryBlocks, kThreads, 0, st>>>(
+      g.state, g.decay, g.nc);
+  outputs<<<chunks * (g.Qpad / kT), kThreads, o_bytes, st>>>(g);
   return cudaGetLastError();
 }
 
@@ -278,23 +851,45 @@ cudaError_t launch(const void* x, const void* a, const void* B, const void* C,
 
 extern "C" {
 
+// Scratch: acum (batch·H, chunks, Qpad) doubles, state (batch·H, chunks,
+// 64, 64) and decay (batch·H, chunks) floats, chunks = ceil(L / Q), Qpad =
+// Q rounded up to 64.
 int fedadc_ssd_scan(const void* x, const void* a, const void* B,
-                    const void* C, void* y, int64_t batch, int64_t L,
-                    int64_t H, int64_t P, int64_t N, int64_t Q, int bc_dtype,
-                    int y_dtype, void* stream) {
-  if (P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 || Q > kMaxQ)
+                    const void* C, void* y, void* acum, void* state,
+                    void* decay,
+                    int64_t batch, int64_t L, int64_t H, int64_t P, int64_t N,
+                    int64_t Q, int bc_dtype, int y_dtype, void* stream) {
+  if (P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 || Q > kMaxQ ||
+      L < 1 || batch < 1 || H < 1 || (bc_dtype != kF32 && bc_dtype != kBF16))
     return (int)cudaErrorInvalidValue;
+  Args g;
+  g.x = static_cast<const float*>(x);
+  g.a = static_cast<const float*>(a);
+  g.B = B;
+  g.C = C;
+  g.y = y;
+  g.acum = static_cast<double*>(acum);
+  g.state = static_cast<float*>(state);
+  g.decay = static_cast<float*>(decay);
+  g.L = (int)L, g.H = (int)H, g.P = (int)P, g.N = (int)N, g.Q = (int)Q;
+  g.Qpad = (int)((Q + kT - 1) / kT * kT);
+  g.nc = (int)((L + Q - 1) / Q);
+  g.bh = (int)(batch * H);
+  const int64_t blocks = (int64_t)g.bh * g.nc * (g.Qpad / kT);
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  // 16-byte copies: 4 floats, or 8 bf16 of B and C on the bf16 route
+  const bool x_al = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool bc_al = reinterpret_cast<uintptr_t>(B) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(C) % 16 == 0;
+  g.vec_x = x_al && P % 4 == 0;
+  g.vec_bc = bc_al && N % (bc_dtype == kBF16 ? 8 : 4) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bc_dtype == kBF16)
-    return y_dtype == kBF16
-               ? launch<__nv_bfloat16, __nv_bfloat16>(x, a, B, C, y, batch, L,
-                                                      H, P, N, Q, st)
-               : launch<__nv_bfloat16, float>(x, a, B, C, y, batch, L, H, P,
-                                              N, Q, st);
-  return y_dtype == kBF16
-             ? launch<float, __nv_bfloat16>(x, a, B, C, y, batch, L, H, P, N,
-                                            Q, st)
-             : launch<float, float>(x, a, B, C, y, batch, L, H, P, N, Q, st);
+  const bool tcore = bc_dtype == kBF16;
+  if (y_dtype == kBF16)
+    return (int)(tcore ? launch<__nv_bfloat16, true>(g, st)
+                       : launch<__nv_bfloat16, false>(g, st));
+  return (int)(tcore ? launch<float, true>(g, st)
+                     : launch<float, false>(g, st));
 }
 
 const char* fedadc_error_string(int code) {

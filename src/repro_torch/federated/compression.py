@@ -193,11 +193,10 @@ class QSGDCompressor(Compressor):
         self.levels = (1 << bits) - 1     # magnitude levels; sign is separate
 
     def compress(self, delta, ef, key):
-        def leaf(path, x):
-            u = key("/".join(path), x.shape, x.dtype)
-            scale = torch.amax(torch.abs(_rows(x)), dim=1)
-            return ops.qsgd_compress_leaf(x, u, scale, self.levels)
-        return T.unzip2(T.tree_map_with_path(leaf, T.add(delta, ef)))
+        v = T.add(delta, ef)
+        u = T.tree_map_with_path(
+            lambda path, x: key("/".join(path), x.shape, x.dtype), v)
+        return ops.qsgd_compress_tree(v, u, self.levels)
 
     def wire_nbytes(self, tree) -> int:
         bits = sum(_leaf_elems(leaf) * (self.bits + 1) + 32

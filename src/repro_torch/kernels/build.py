@@ -44,7 +44,7 @@ SIGNATURES = {
     },
     SOURCES[1]: {
         "fedadc_threshold_select": [_P, _P, _P, _P, _I64, _I64, _INT, _P],
-        "fedadc_qsgd": [_P, _P, _P, _P, _P, _I64, _I64, _F, _INT, _P],
+        "fedadc_qsgd_leaves": [_P, _I64, _P, _P, _INT, _F, _INT, _P],
         "fedadc_sparse_reduce_leaves": [_P, _I64, _P, _I64, _P, _P, _P,
                                         _INT, _INT, _P],
     },
@@ -59,8 +59,8 @@ SIGNATURES = {
                                    _I64, _INT, _INT, _F, _INT, _P],
     },
     SOURCES[4]: {
-        "fedadc_ssd_scan": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                            _I64, _INT, _INT, _P],
+        "fedadc_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                            _I64, _I64, _I64, _I64, _INT, _INT, _P],
     },
 }
 # the source of every entry point

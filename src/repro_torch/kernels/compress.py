@@ -1,14 +1,15 @@
 """Delta-compression kernels on the card (CUDA C++ in
 ``csrc/compress_kernels.cu``), the counterparts of the Pallas kernels in the
 JAX package's ``kernels/compress.py``: ``threshold_select``
-(``threshold_select_2d``) and ``qsgd`` (``qsgd_2d``).
+(``threshold_select_2d``) and ``qsgd_leaves`` (``qsgd_2d``), QSGD over
+every leaf of a sweep as one leaf table (``leaf_table.py``) with each row's
+scale computed in the call or given; ``qsgd`` is a table of one leaf.
 
 Each emits the reconstruction q AND the residual v − q from one pass over
-the input.  Both take one leaf stacked over the round's clients, (B, ...),
+the input.  Both take leaves stacked over the round's clients, (B, ...),
 with one scalar per client row — the top-k threshold τ or the QSGD scale —
-so a stacked leaf is one launch, not B.  The scalars are computed outside
-the kernel (``torch.topk``, ``amax``), as ``lax.top_k`` and ``jnp.max`` are
-in the reference.
+so a stacked leaf is one launch, not B.  The thresholds are computed
+outside the kernel (``torch.topk``), as ``lax.top_k`` is in the reference.
 
 Every wrapper checks its operands and raises on what the kernel does not
 take, allocates its outputs with ``torch.empty``, launches on the current
@@ -19,8 +20,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+import math
+
+from repro_torch.kernels import build, leaf_table
 from repro_torch.kernels.fedadc_update import DTYPE_CODE, check_operands, stream
+
+QSGD_TILE = 4096      # elements of a row a block: kQsgdTile in the .cu
 
 
 def _row_scalars(name, v, scalars):
@@ -48,19 +53,88 @@ def threshold_select(v: torch.Tensor, thresh: torch.Tensor):
 
 
 def qsgd(v: torch.Tensor, u: torch.Tensor, scale: torch.Tensor, s: int):
-    """QSGD quantise-dequantise of v (B, ...) with the uniform draw u (v's
-    shape and dtype), the per-row scale (B,) in v's dtype and ``s`` levels
-    -> (q, r)."""
+    """QSGD quantise-dequantise of one leaf v (B, ...) with the uniform draw
+    u (v's shape and dtype), the per-row scale (B,) in v's dtype and ``s``
+    levels -> (q, r): ``qsgd_leaves`` over a table of one leaf with the
+    scales given."""
     check_operands("qsgd", v, u)
-    rows, n = _row_scalars("qsgd", v, scale)
-    q, r = torch.empty_like(v), torch.empty_like(v)
-    if v.numel():
-        build.launch("fedadc_qsgd", v.data_ptr(), u.data_ptr(),
-                     scale.data_ptr(), q.data_ptr(), r.data_ptr(), rows, n,
-                     float(s), DTYPE_CODE[v.dtype], stream())
-        qsgd.launches += 1
+    _row_scalars("qsgd", v, scale)
+    (q,), (r,) = qsgd_leaves([v], [u], s, scales=scale.float())
     return q, r
 
 
+def _qsgd_plan(shapes, dtype):
+    """What a QSGD sweep over stacked leaves of ``shapes`` needs besides
+    the pointers, computed once per tree: the table rows with the q and r
+    byte offsets into one output buffer (q's of every leaf, then r's), the
+    buffer's half length, each view's (shape, strides, offset) and the
+    per-group totals of (rows, blocks)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    fields, units, views, off = [], [], [], 0
+    for shape in shapes:
+        rows, n = shape[0], math.prod(shape[1:])
+        fields.append([0, 0, off * esize, 0, n])
+        units.append((rows, rows * leaf_table.cdiv(n, QSGD_TILE)))
+        views.append((shape, leaf_table.strides(shape), off))
+        off += leaf_table.padded(rows * n)
+    for f in fields:
+        f[3] = f[2] + off * esize
+    rows, totals = leaf_table.pack(fields, units)
+    return rows, off, views, totals
+
+
+_QSGD_PLANS = {}
+
+
+def qsgd_leaves(vs, us, s: int, scales=None):
+    """QSGD of every leaf of a sweep: vs[i] (B_i, ...) stacked over client
+    rows, us[i] the uniform draws of its shape, one dtype (fp32 or bf16) and
+    card for all, ``s`` levels.  Each row's scale is its max |v|, computed
+    in the call, or taken from ``scales``: one fp32 per row of every leaf
+    in order.  -> (qs, rs), views of one buffer; one launch a group of 64
+    leaves."""
+    if len(vs) != len(us):
+        raise ValueError(f"qsgd: {len(vs)} v leaves, {len(us)} draws")
+    if not vs:
+        return [], []
+    dtype, dev = vs[0].dtype, vs[0].get_device()
+    if dtype not in DTYPE_CODE:
+        raise ValueError(f"qsgd: dtype {dtype} not supported "
+                         f"(float32, bfloat16)")
+    for v, u in zip(vs, us):
+        if (v.dim() == 0 or u.shape != v.shape or v.get_device() != dev
+                or u.get_device() != dev or dev < 0 or v.dtype is not dtype
+                or u.dtype is not dtype or not v.is_contiguous()
+                or not u.is_contiguous()):
+            if v.dim() == 0:
+                raise ValueError("qsgd: needs leaves stacked over clients")
+            check_operands("qsgd", v, u, dtype=dtype, shape=v.shape,
+                           device=dev)
+            raise ValueError(f"qsgd: operands on cuda:{dev} and {v.device}")
+    shapes = tuple(tuple(v.shape) for v in vs)
+    key = (shapes, dtype)
+    plan = _QSGD_PLANS.get(key)
+    if plan is None:
+        plan = _QSGD_PLANS.setdefault(key, _qsgd_plan(shapes, dtype))
+    template, half, views, totals = plan
+    rows = template.copy()
+    rows[:, 0] = [v.data_ptr() for v in vs]
+    rows[:, 1] = [u.data_ptr() for u in us]
+    out = torch.empty(2 * half, dtype=dtype, device=vs[0].device)
+    n_rows = sum(t[0] for t in totals)
+    compute = scales is None
+    if compute:
+        scales = torch.empty(n_rows, dtype=torch.float32, device=out.device)
+    else:
+        check_operands("qsgd", scales, dtype=torch.float32, shape=(n_rows,),
+                       device=dev)
+    build.launch("fedadc_qsgd_leaves", rows.ctypes.data, len(vs),
+                 out.data_ptr(), scales.data_ptr(), int(compute), float(s),
+                 DTYPE_CODE[dtype], stream())
+    qsgd_leaves.launches += sum(1 for t in totals if t[1])
+    return ([out.as_strided(sh, st, off) for sh, st, off in views],
+            [out.as_strided(sh, st, half + off) for sh, st, off in views])
+
+
 threshold_select.launches = 0
-qsgd.launches = 0
+qsgd_leaves.launches = 0

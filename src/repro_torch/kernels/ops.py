@@ -31,7 +31,7 @@ KERNELS = {
     "server_update": _fu.server_update,
     "weighted_reduce": _wr.weighted_reduce_leaves,
     "threshold_select": _cp.threshold_select,
-    "qsgd": _cp.qsgd,
+    "qsgd": _cp.qsgd_leaves,
     "sparse_reduce": _sr.sparse_reduce_leaves,
     "kd_loss": _kd.kd_loss,
     "kd_loss_bwd": _kd.kd_loss_bwd,
@@ -152,6 +152,29 @@ def qsgd_compress_leaf(v, u, scale, s):
     if v.device.type == "cpu":
         return ref.qsgd_quantize(v, u, scale, s)
     return _cp.qsgd(v.contiguous(), u.contiguous(), scale.contiguous(), s)
+
+
+def qsgd_compress_tree(vs_tree, us_tree, s):
+    """QSGD of every leaf of a tree of client-stacked leaves (B, ...), with
+    the uniform draws ``us_tree`` (a tree of the same structure), each
+    row's scale its max |v| -> (q tree, residual tree).  On the card one
+    call a dtype: per 64 leaves one launch that computes the scales and
+    quantises; on the CPU the per-leaf plain version with ``torch.amax``
+    scales."""
+    vs, us = T.leaves(vs_tree), T.leaves(us_tree)
+    us = [u if u.dtype is v.dtype else u.to(v.dtype) for v, u in zip(vs, us)]
+    if _on_cpu(vs + us, "qsgd"):
+        pairs = [ref.qsgd_quantize(
+            v, u, torch.amax(torch.abs(v.reshape(v.shape[0], -1)), dim=1), s)
+            for v, u in zip(vs, us)]
+    else:
+        pairs = _per_dtype(
+            [v.dtype for v in vs],
+            lambda pos: list(zip(*_cp.qsgd_leaves(
+                [vs[i].contiguous() for i in pos],
+                [us[i].contiguous() for i in pos], s))))
+    return (_like(vs_tree, [q for q, _ in pairs]),
+            _like(vs_tree, [r for _, r in pairs]))
 
 
 def topk_compress_leaf(v, thresh):

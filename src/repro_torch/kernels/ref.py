@@ -258,6 +258,66 @@ def ssd_recurrence(xdt, a, B, C):
     return torch.stack(ys, dim=1)
 
 
+def _chunked(t, chunk):
+    """(b, L, H, ...) -> (b, chunks, chunk, H, ...) fp32, zero-padded past L."""
+    L = t.shape[1]
+    n_chunks = -(-L // chunk)
+    pad = torch.zeros((t.shape[0], n_chunks * chunk - L) + t.shape[2:],
+                      dtype=torch.float32, device=t.device)
+    t = torch.cat([t.float(), pad], dim=1)
+    return t.reshape((t.shape[0], n_chunks, chunk) + t.shape[2:])
+
+
+def ssd_chunk_states(xdt, a, B, chunk):
+    """The SSD kernel's first phase: per (batch, head) and chunk of
+    ``chunk`` positions (the last one zero-padded past L) the running sums
+    acum of the log decay within the chunk, in float64, and the chunk's
+    state S_c = Σ_j B_jᵀ·e^{a_end − acum_j}·x_j, each gate's difference
+    taken in float64 and rounded once to fp32.
+    -> (acum (b, H, chunks, chunk) float64, S (b, H, chunks, N, P) fp32)."""
+    acum = torch.cumsum(_chunked(a, chunk).double(), dim=2).permute(0, 3, 1, 2)
+    w = torch.exp((acum[..., -1:] - acum).float())
+    S = torch.einsum("bcqhn,bhcq,bcqhp->bhcnp", _chunked(B, chunk), w,
+                     _chunked(xdt, chunk))
+    return acum, S
+
+
+def ssd_state_pass(S, acum):
+    """The second phase: the state before each chunk, h_0 = 0 and
+    h_c = e^{a_end,c−1}·h_{c−1} + S_{c−1} -> (b, H, chunks, N, P) fp32."""
+    decay = torch.exp(acum[..., -1]).float()
+    h = torch.zeros_like(S[:, :, 0])
+    before = []
+    for c in range(S.shape[2]):
+        before.append(h)
+        h = decay[:, :, c, None, None] * h + S[:, :, c]
+    return torch.stack(before, dim=2)
+
+
+def ssd_chunk_outputs(xdt, B, C, acum, h_prev, chunk):
+    """The third phase: within each chunk y_i = Σ_{j≤i} (C_i·B_j)
+    e^{acum_i − acum_j} x_j + e^{acum_i} C_i·h_prev -> (b, L, H, P) fp32."""
+    L = xdt.shape[1]
+    Bc, Cc = _chunked(B, chunk), _chunked(C, chunk)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=xdt.device))
+    diff = (acum[..., :, None] - acum[..., None, :]).float()
+    gate = torch.exp(torch.where(causal, diff, torch.zeros_like(diff)))
+    scores = torch.einsum("bcqhn,bckhn->bhcqk", Cc, Bc)
+    scores = torch.where(causal, scores * gate, torch.zeros_like(scores))
+    y = torch.einsum("bhcqk,bckhp->bcqhp", scores, _chunked(xdt, chunk))
+    carried = torch.einsum("bcqhn,bhcnp->bcqhp", Cc, h_prev)
+    y = y + carried * torch.exp(acum).float().permute(0, 2, 3, 1)[..., None]
+    return y.reshape((y.shape[0], -1) + y.shape[3:])[:, :L]
+
+
+def ssd_chunked_scan(xdt, a, B, C, chunk):
+    """The SSD kernel's three phases composed -> y (b, L, H, P) fp32,
+    without the D term: the chunked counterpart of ``ssd_recurrence``."""
+    acum, S = ssd_chunk_states(xdt, a, B, chunk)
+    return ssd_chunk_outputs(xdt, B, C, acum, ssd_state_pass(S, acum), chunk)
+
+
 def ssd_prologue(x, dt, A_log):
     """The elementwise prologue the SSD kernel leaves to its caller:
     -> (x·dt, −exp(A_log)·dt), both fp32."""

@@ -124,6 +124,42 @@ def test_qsgd_zero_leaf_is_exact():
     assert torch.equal(r, torch.zeros_like(v))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qsgd_tree_matches_per_leaf_and_reference(dtype):
+    """One sweep over a CNN-shaped tree stacked over 4 clients, one leaf all
+    zeros: the tree call (per-row max scales folded in) equals the per-leaf
+    wrapper with ``torch.amax`` scales bit for bit, and each client row
+    equals the reference's Pallas kernel (interpret mode) with the
+    reference's ``jnp.max`` scale at ``test_qsgd_matches_reference``'s
+    bars (XLA fuses the residual where torch rounds each op: one fp32 ulp
+    of a level apart)."""
+    from repro_torch.core import tree as T
+    from repro_torch.models.vision import cnn_init
+    params = cnn_init(0, n_classes=10, width=4, image_size=16, device="cpu")
+    rng = np.random.RandomState(3)
+    K, s = 4, 15
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    v = T.tree_map(lambda p: as_torch(rng.randn(K, *p.shape), dtype), params)
+    u = T.tree_map(lambda p: as_torch(rng.uniform(size=(K,) + tuple(p.shape)),
+                                      dtype), params)
+    T.leaves(v)[0].zero_()
+    q, r = ops.qsgd_compress_tree(v, u, s)
+    for vl, ul, ql, rl in zip(*(T.leaves(t) for t in (v, u, q, r))):
+        scale = torch.amax(torch.abs(vl.reshape(K, -1)), dim=1)
+        qe, re = ops.qsgd_compress_leaf(vl, ul, scale, s)
+        assert ql.dtype == vl.dtype and ql.shape == vl.shape
+        assert torch.equal(ql, qe) and torch.equal(rl, re)
+        for k in range(K):
+            j = jnp.asarray(vl[k].float().numpy(), JAX_DT[dtype])
+            ju = jnp.asarray(ul[k].float().numpy(), JAX_DT[dtype])
+            jq, jr = jops.qsgd_compress_leaf(j, ju, jnp.max(jnp.abs(j)), s)
+            np.testing.assert_allclose(as_np(ql[k]), as_np(jq), atol=tol,
+                                       rtol=tol)
+            np.testing.assert_allclose(as_np(rl[k]), as_np(jr), atol=tol,
+                                       rtol=tol)
+    assert not T.leaves(q)[0].any() and not T.leaves(r)[0].any()
+
+
 # ---------------------------------------------------------------------------
 # sparse reduce
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from repro_torch.kernels import fedadc_update as FU
 from repro_torch.kernels import kd_loss as KD
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sparse_reduce as SR
+from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.kernels import weighted_reduce as WR
 
 
@@ -386,22 +387,36 @@ def test_flash_attention_matches_plain(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_matches_plain(dtype):
-    """The SSD kernel (through ``ops.ssd_scan``, prologue and D term
-    included) against the plain sequential recurrence at the reference
-    sweep's shapes and two ragged lengths: within 2e-5 (fp32) and 5e-2
-    (bf16) of the output's largest magnitude, the reference's bars."""
+    """The SSD kernels (through ``ops.ssd_scan``, prologue and D term
+    included: one counted call of three device kernels) against the plain
+    sequential recurrence at the reference sweep's shapes, ragged lengths
+    (L 100 at chunk 64, L 300 and L 1100 at chunk 256), L shorter than a
+    chunk, P 12 and N 10 (the copies element by element), batch 1 at L 4096
+    (the carry crosses 16 chunks) and decays large enough that exp(a_end)
+    underflows to 0: within 2e-5 (fp32) and 5e-2
+    (bf16) of the output's largest magnitude, the reference's bars; the
+    running sums and the states left in device memory against the plain
+    phases.  In bf16, the tensor-core route also with an fp32 output,
+    within 1e-4 of max |y|: its split (hi + lo) operands keep the products
+    near fp32, where a single bf16 rounding of the scores or of x would
+    not."""
     need_card()
     g = torch.Generator().manual_seed(6)
     tol = 2e-5 if dtype == torch.float32 else 5e-2
-    for b, L, H, P, N, chunk in ((1, 64, 2, 16, 8, 16),
-                                 (2, 128, 4, 32, 16, 32),
-                                 (1, 256, 2, 64, 64, 64),
-                                 (2, 96, 3, 16, 8, 32),
-                                 (2, 100, 4, 32, 16, 64),
-                                 (1, 300, 4, 64, 64, 256)):
+    for b, L, H, P, N, chunk, dt_scale in ((1, 64, 2, 16, 8, 16, 1),
+                                           (2, 128, 4, 32, 16, 32, 1),
+                                           (1, 256, 2, 64, 64, 64, 1),
+                                           (2, 96, 3, 16, 8, 32, 1),
+                                           (2, 100, 4, 32, 16, 64, 1),
+                                           (1, 300, 4, 64, 64, 256, 1),
+                                           (1, 1100, 4, 64, 64, 256, 1),
+                                           (1, 50, 2, 64, 64, 256, 1),
+                                           (1, 64, 2, 12, 10, 16, 1),
+                                           (1, 4096, 2, 64, 64, 256, 1),
+                                           (1, 1024, 4, 64, 64, 256, 40)):
         x = torch.randn(b, L, H, P, generator=g).to("cuda", dtype)
-        dt = torch.nn.functional.softplus(torch.randn(b, L, H, generator=g)
-                                          ).cuda()
+        dt = dt_scale * torch.nn.functional.softplus(
+            torch.randn(b, L, H, generator=g)).cuda()
         A_log = torch.log(torch.arange(1, H + 1, dtype=torch.float32)).cuda()
         Bm, Cm = (torch.randn(b, L, H, N, generator=g).to("cuda", dtype)
                   for _ in range(2))
@@ -410,8 +425,64 @@ def test_ssd_scan_matches_plain(dtype):
         got = ops.ssd_scan(x, dt, A_log, Bm, Cm, D, chunk)
         assert ops.launch_counts()["ssd_scan"] == 1
         want = ref.ssd_scan(x, dt, A_log, Bm, Cm, D)
+        assert torch.isfinite(got).all()
         err = (got - want).abs().max() / want.abs().max()
         assert err <= tol
+        xdt, a = ref.ssd_prologue(x, dt, A_log)
+        Q = min(chunk, L)
+        _, acum, state = SSD.ssd_scan(xdt, a, Bm, Cm, Q, dtype,
+                                      intermediates=True)
+        r_acum, r_S = ref.ssd_chunk_states(xdt, a, Bm, Q)
+        r_h = ref.ssd_state_pass(r_S, r_acum)
+        torch.testing.assert_close(acum[..., :Q], r_acum, rtol=0, atol=1e-9)
+        h_err = (state[..., :N, :P] - r_h).abs().max()
+        assert h_err <= 1e-4 * r_h.abs().max() + 1e-30
+        assert not state[..., N:, :].any() and not state[..., P:].any()
+        if dtype == torch.bfloat16:
+            got32 = SSD.ssd_scan(xdt, a, Bm, Cm, Q, torch.float32)
+            want32 = ref.ssd_recurrence(xdt, a, Bm, Cm)
+            assert ((got32 - want32).abs().max()
+                    <= 1e-4 * want32.abs().max())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qsgd_tree_matches_per_leaf_kernel(dtype):
+    """One QSGD sweep over 70 leaves stacked over 8 clients (two leaf-table
+    groups: two launches), with an all-zero leaf, a NaN in one row and a
+    -0.0: the tree call, its per-row scales computed in the call, equals the
+    table call with the scales given, the one-leaf call (a table of one)
+    with torch.amax scales and the plain version bit for bit (a NaN row
+    NaN in all)."""
+    need_card()
+    g = torch.Generator().manual_seed(4)
+    shapes = [(1,), (3, 5, 7), (4097,), (8193,), (130,)] * 14
+    vs = [torch.randn((8, *sh), generator=g).to("cuda", dtype)
+          for sh in shapes]
+    us = [torch.rand((8, *sh), generator=g).to("cuda", dtype)
+          for sh in shapes]
+    vs[0].zero_()
+    vs[1][3, 0, 0, 0] = float("nan")
+    vs[2][1, 0] = -0.0
+    tree_v = {str(i): v for i, v in enumerate(vs)}
+    tree_u = {str(i): u for i, u in enumerate(us)}
+    ops.reset_launch_counts()
+    q, r = ops.qsgd_compress_tree(tree_v, tree_u, 15)
+    assert ops.launch_counts()["qsgd"] == 2
+    scales = torch.cat([torch.amax(v.reshape(8, -1).abs(), dim=1).float()
+                        for v in vs])
+    q_given, r_given = CP.qsgd_leaves(vs, us, 15, scales=scales)
+    for i, (v, u) in enumerate(zip(vs, us)):
+        scale = torch.amax(v.reshape(8, -1).abs(), dim=1)
+        for got, given, per_leaf, plain in zip(
+                (q[str(i)], r[str(i)]), (q_given[i], r_given[i]),
+                CP.qsgd(v, u, scale, 15), ref.qsgd_quantize(v, u, scale, 15)):
+            for want in (given, per_leaf, plain):
+                assert torch.equal(got.isnan(), want.isnan())
+                assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert not q["0"].any() and not r["0"].any()
+    assert q["1"][3].isnan().all() and not q["1"][:3].isnan().any()
     torch.cuda.synchronize()
 
 

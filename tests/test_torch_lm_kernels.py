@@ -170,6 +170,129 @@ def test_ssd_chunked_matches_reference():
                                atol=3e-4, rtol=1e-3)
 
 
+# the CUDA kernel's three phases (chunk states, carry, outputs), plainly
+def ssd_phases(x, dt, A_log, B, C, D, chunk):
+    """``ref``'s phase functions composed, the D skip added as ops does."""
+    xdt, a = ref.ssd_prologue(x, dt, A_log)
+    y = ref.ssd_chunked_scan(xdt, a, B, C, min(chunk, x.shape[1]))
+    return y + D.float()[None, None, :, None] * xdt
+
+
+@pytest.mark.parametrize("b,L,H,P,N,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_phases_match_reference(b, L, H, P, N, chunk, dtype):
+    """The kernel's phases composed against the reference's sequential
+    oracle and its Pallas kernel (interpret mode), at the reference's
+    bars."""
+    args, jargs = ssd_operands(L + P + 1, b, L, H, P, N, dtype)
+    tol = 5e-2 if dtype == "bfloat16" else 2e-5
+    got = ssd_phases(*args, chunk)
+    assert_rel(got, jref.ssd_scan(*jargs), tol)
+    assert_rel(got, JSSD.ssd_scan(*jargs, chunk=chunk, interpret=True), tol)
+
+
+@pytest.mark.parametrize("L,chunk", [(100, 32), (300, 256), (1100, 256),
+                                     (50, 256)])
+def test_ssd_phases_ragged_length(L, chunk):
+    """A ragged last chunk, and L shorter than one chunk, against the
+    sequential oracle only (the Pallas kernel reads NaN past L in interpret
+    mode): the padded positions change neither y nor the carried state."""
+    args, jargs = ssd_operands(L + 7, 1, L, 2, 32, 16, "float32")
+    assert_rel(ssd_phases(*args, chunk), jref.ssd_scan(*jargs), 2e-5)
+
+
+def test_ssd_phase_intermediates():
+    """What the kernels leave in device memory, plainly: acum is the
+    running sum of a within each chunk (flat past L), and the state before
+    chunk c is the sequential recurrence's state after c·chunk positions."""
+    b, L, H, P, N, chunk = 2, 200, 3, 16, 8, 64
+    args, _ = ssd_operands(11, b, L, H, P, N, "float32")
+    xdt, a = ref.ssd_prologue(*args[:3])
+    acum, S = ref.ssd_chunk_states(xdt, a, args[3], chunk)
+    h_prev = ref.ssd_state_pass(S, acum)
+    assert acum.dtype == torch.float64 and acum.shape == (b, H, 4, chunk)
+    assert S.shape == h_prev.shape == (b, H, 4, N, P)
+    a64 = torch.nn.functional.pad(a.double(), (0, 0, 0, 4 * chunk - L))
+    want = torch.cumsum(a64.reshape(b, 4, chunk, H), dim=2).permute(0, 3, 1, 2)
+    torch.testing.assert_close(acum, want, rtol=0, atol=1e-12)
+    assert torch.equal(acum[..., 3, L - 3 * chunk - 1:],
+                       acum[..., 3, L - 3 * chunk - 1:L - 3 * chunk].expand(
+                           -1, -1, 4 * chunk - L + 1))
+    assert not h_prev[:, :, 0].any()
+    h = torch.zeros((b, H, N, P), dtype=torch.float64)
+    decay = torch.exp(a.double())
+    for t in range(3 * chunk):
+        if t % chunk == 0:
+            got = h_prev[:, :, t // chunk].double()
+            assert ((got - h).abs().max() / h.abs().max().clamp_min(1e-30)
+                    <= 1e-5)
+        h = (h * decay[:, t, :, None, None] + args[3][:, t, :, :, None]
+             .double() * xdt[:, t, :, None, :].double())
+
+
+def test_ssd_phases_underflowing_decays_stay_finite():
+    """Decays of e^(-1e4) and beyond within a chunk (the gates underflow to
+    0): no NaN, and the sequential oracle's result."""
+    args, jargs = ssd_operands(5, 1, 512, 2, 16, 8, "float32")
+    x, dt, _, B, C, D = args
+    dt = dt * 40.0
+    A_log = torch.log(torch.tensor([20.0, 200.0]))
+    got = ssd_phases(x, dt, A_log, B, C, D, 256)
+    assert torch.isfinite(got).all()
+    assert_rel(got, ref.ssd_scan(x, dt, A_log, B, C, D), 2e-5)
+
+
+def bf16_ssd_emulation(xdt, a, B, C, chunk):
+    """The bf16 kernel's roundings in torch: the products C·Bᵀ exact in
+    fp32 from bf16 operands, the gated scores P and x·dt each split into a
+    bf16 part and its bf16-rounded remainder, P·x = P_hi·x_hi + P_hi·x_lo +
+    P_lo·x_hi; the state's w·x and the carried state likewise."""
+    def split(t):
+        hi = t.to(torch.bfloat16).float()
+        return hi, (t - hi).to(torch.bfloat16).float()
+
+    def split_prod(p, q, eq):
+        ph, pl = split(p)
+        qh, ql = split(q)
+        return (torch.einsum(eq, ph, qh) + torch.einsum(eq, ph, ql)
+                + torch.einsum(eq, pl, qh))
+    L = xdt.shape[1]
+    acum, _ = ref.ssd_chunk_states(xdt, a, B, chunk)
+    Bc, Cc = ref._chunked(B, chunk), ref._chunked(C, chunk)
+    xc = ref._chunked(xdt, chunk)
+    w = torch.exp((acum[..., -1:] - acum).float())
+    wx = xc * w.permute(0, 2, 3, 1)[..., None]
+    S = torch.einsum("bcqhn,bcqhp->bhcnp", Bc, split(wx)[0]) + torch.einsum(
+        "bcqhn,bcqhp->bhcnp", Bc, split(wx)[1])
+    h_prev = ref.ssd_state_pass(S, acum)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    diff = (acum[..., :, None] - acum[..., None, :]).float()
+    gate = torch.exp(torch.where(causal, diff, torch.zeros_like(diff)))
+    scores = torch.einsum("bcqhn,bckhn->bhcqk", Cc, Bc)
+    P = torch.where(causal, scores * gate, torch.zeros_like(scores))
+    y = split_prod(P, xc, "bhcqk,bckhp->bcqhp")
+    hh, hl = split(h_prev)
+    carried = (torch.einsum("bcqhn,bhcnp->bcqhp", Cc, hh)
+               + torch.einsum("bcqhn,bhcnp->bcqhp", Cc, hl))
+    y = y + carried * torch.exp(acum).float().permute(0, 2, 3, 1)[..., None]
+    return y.reshape((y.shape[0], -1) + y.shape[3:])[:, :L]
+
+
+@pytest.mark.parametrize("b,L,H,P,N,chunk", SSD_SHAPES)
+def test_ssd_bf16_kernel_rounding_meets_the_reference_bar(b, L, H, P, N,
+                                                          chunk):
+    """The bf16 route's rounding, emulated, against the reference's Pallas
+    kernel at its bf16 bar (5e-2 of max |y|) and, much tighter, against the
+    phases in fp32 (the split keeps the products near fp32: 1e-4)."""
+    args, jargs = ssd_operands(L + N, b, L, H, P, N, "bfloat16")
+    x, dt, A_log, B, C, D = args
+    xdt, a = ref.ssd_prologue(x, dt, A_log)
+    y = bf16_ssd_emulation(xdt, a, B, C, chunk)
+    assert_rel(y, ref.ssd_chunked_scan(xdt, a, B, C, chunk), 1e-4)
+    got = y.to(torch.bfloat16).float() + D[None, None, :, None] * xdt
+    assert_rel(got, JSSD.ssd_scan(*jargs, chunk=chunk, interpret=True), 5e-2)
+
+
 # ---------------------------------------------------------------------------
 # the wrappers on the CPU
 # ---------------------------------------------------------------------------

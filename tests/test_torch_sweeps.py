@@ -22,6 +22,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import strategies as S
 from repro_torch.core import tree as T
+from repro_torch.kernels import compress as CP
 from repro_torch.kernels import fedadc_update as FU
 from repro_torch.kernels import leaf_table as LT
 from repro_torch.kernels import ops, ref
@@ -319,6 +320,50 @@ def test_weighted_reduce_plan(n_leaves, dtype):
         off += LT.padded(n)
     assert total == off
     assert launches == -(-n_leaves // LT.MAX_LEAVES)
+
+
+@pytest.mark.parametrize("n_leaves", [16, 64, 70])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qsgd_plan(n_leaves, dtype):
+    """QSGD's table: per leaf (v, u, q's and r's byte offsets, n, end of its
+    rows, end of its blocks: rows x tiles of 4096 elements), the ends
+    restarting every 64 leaves; q's of every leaf then r's in one buffer,
+    16-byte aligned; one launch per group that has a block."""
+    lengths = [1, 7, 4096, 4097, 0, 8193, 30]
+    shapes = tuple((3 + i % 2, lengths[i % len(lengths)])
+                   for i in range(n_leaves))
+    rows, half, views, totals = CP._qsgd_plan(shapes, dtype)
+    assert rows.shape == (n_leaves, 7)
+    esize = torch.empty((), dtype=dtype).element_size()
+    off, run_rows, run_blocks = 0, 0, 0
+    for i, (shape, row) in enumerate(zip(shapes, rows.tolist())):
+        if i % LT.MAX_LEAVES == 0:
+            run_rows = run_blocks = 0
+        k, n = shape
+        run_rows += k
+        run_blocks += k * LT.cdiv(n, CP.QSGD_TILE)
+        assert row == [0, 0, off * esize, (half + off) * esize, n, run_rows,
+                       run_blocks]
+        assert row[2] % 16 == 0 and row[3] % 16 == 0
+        assert views[i] == (shape, (n, 1), off)
+        off += LT.padded(k * n)
+    assert half == off
+    assert len(totals) == LT.cdiv(n_leaves, LT.MAX_LEAVES)
+    assert sum(t[0] for t in totals) == sum(k for k, _ in shapes)
+
+
+def test_qsgd_tree_refuses_cpu_leaves_and_mixed_devices():
+    """The table wrapper takes CUDA leaves only; the tree form keeps CPU
+    leaves on the plain version and refuses a sweep over two devices."""
+    v = torch.randn(4, 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        CP.qsgd_leaves([v], [v], 15)
+    assert CP.qsgd_leaves([], [], 15) == ([], [])
+    with pytest.raises(ValueError, match="not supported"):
+        CP.qsgd_leaves([v.double()], [v.double()], 15)
+    with pytest.raises(ValueError, match="mixed devices"):
+        ops.qsgd_compress_tree({"a": v}, {"a": torch.rand(4, 10,
+                                                           device="meta")}, 15)
 
 
 def test_weighted_reduce_wrapper_refuses_cpu_and_bad_stacks():
