@@ -6,9 +6,9 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --kernel-times [--src OTHER/src]`` only builds the
-port of this (or another) checkout and times its SSD scan and QSGD sweep
-(``kernel_times``), one JSON line, so that two checkouts can be timed in
-turns on one card.
+port of this (or another) checkout and times its SSD scan, QSGD sweep and
+local and server update sweeps (``kernel_times``), one JSON line, so that
+two checkouts can be timed in turns on one card.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -18,16 +18,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               plain PyTorch version on the card, bit for bit in fp32 and
               bf16, at the main path's leaf shapes (the paper CNN at width
               32, its 16 leaves stacked over K=8 clients) and at
-              ResNet-18's largest leaf stacked over K=8; the four sweep
-              kernels (fused_axpy, the weighted reduce and QSGD, one launch
-              per 64 leaves, QSGD with each row's scale computed in the
-              call, and the sparse reduce, one call of four kernels per
-              aggregate) also over ResNet-18's 76 leaves (two leaf-table
-              groups), over edge sweeps (an empty leaf, lengths off the
-              tile, a leaf not 16-byte aligned, k = 0, out-of-range
-              indices; for QSGD an all-zero leaf, a NaN and a -0.0, also
-              against one-leaf tables with torch.amax scales given) and,
-              for the sparse reduce,
+              ResNet-18's largest leaf stacked over K=8; the six sweep
+              kernels (fused_axpy, the local and server updates — the
+              server's with the scale 1/eta folded in, theta beside an
+              fp32 momentum, delta in theta's dtype and in fp32 — the
+              weighted reduce and QSGD, one launch per 64 leaves, QSGD
+              with each row's scale computed in the call, and the sparse
+              reduce, one call of four kernels per aggregate) also over
+              ResNet-18's 76 leaves (two leaf-table groups), over edge
+              sweeps (an empty leaf, lengths off the tile, a leaf not
+              16-byte aligned, 65 leaves, k = 0, out-of-range indices; for
+              QSGD an all-zero leaf, a NaN and a -0.0, also against
+              one-leaf tables with torch.amax scales given) and, for the
+              sparse reduce,
               duplicate indices within and across clients; the weighted and the
               sparse reduce also at K=96 bf16 against an fp64 oracle (1
               bf16 ulp);
@@ -55,7 +58,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               logged beside it; the weighted reduce: torch.tensordot per
               leaf; the sparse reduce: index_add_ per leaf; QSGD: the table
               call with the scales given and a loop of one-leaf calls with
-              and without torch.amax launches), flash and the SSD in bf16 at
+              and without torch.amax launches; the local and server
+              updates, which no one PyTorch call computes: a loop of
+              one-leaf calls, torch._foreach_* chains of the same
+              arithmetic, and the output views made by as_strided and by
+              one C++ call), flash and the SSD in bf16 at
               the prefill shape too, and both LM kernels at the prefill_32k
               length (L 32768);
 3. main     — the paper CNN at width 32 on 32x32x3 images at CIFAR-10
@@ -156,7 +163,7 @@ SOURCE = {name: (WIRE_SOURCE if name in ("threshold_select", "qsgd",
           for name in TPU_KERNEL}
 SOURCE["flash_attention"] = "src/repro_torch/csrc/attention_kernels.cu"
 SOURCE["ssd_scan"] = "src/repro_torch/csrc/ssd_kernels.cu"
-# the kernels that take a whole sweep in one call (leaf tables)
+# the sweep kernels whose device time is logged beside their library call's
 SWEEP_KERNELS = ("fused_axpy", "weighted_reduce", "sparse_reduce")
 K = 8
 ETA = 0.01
@@ -295,7 +302,8 @@ def bound(kernel, sizes, k=K):
     nbytes, flops = {
         "fused_axpy": (3 * 4 * k * n, 2 * k * n),
         "local_update": (4 * 4 * k * n, 3 * k * n),
-        "server_update": (5 * 4 * n, 4 * n),
+        # Δ̄ = s·Δ folded in: one more multiply, no more bytes
+        "server_update": (5 * 4 * n, 5 * n),
         "weighted_reduce": (4 * (k + 1) * n, 2 * k * n),
         "threshold_select": (3 * 4 * k * n, 2 * k * n),
         "qsgd": (4 * 4 * k * n, 9 * k * n),
@@ -349,9 +357,9 @@ def sweeps(torch, FU, WR, ref, shapes, dtype, gen):
     zs = [rnd(K, *s) for s in shapes]
     th = [rnd(*s) for s in shapes]
     ms = [rnd(*s, dt=torch.float32) for s in shapes]
-    ds = [rnd(*s, dt=torch.float32) for s in shapes]
+    ds = [rnd(*s) for s in shapes]       # mean_delta in θ's dtype
     w = torch.rand(K, generator=gen).to(dev)
-    a, eta, gamma, ae = -0.05, 0.05, 0.2, 0.05
+    a, eta, gamma, ae, sc = -0.05, 0.05, 0.2, 0.05, 1 / ETA
     return {
         "fused_axpy": (
             lambda: FU.fused_axpy_leaves(xs, ys, a),
@@ -360,15 +368,16 @@ def sweeps(torch, FU, WR, ref, shapes, dtype, gen):
              "torch.add per leaf": lambda: [torch.add(x, y, alpha=a)
                                             for x, y in zip(xs, ys)]}),
         "local_update": (
-            lambda: [FU.local_update(x, y, z, eta)
-                     for x, y, z in zip(xs, ys, zs)],
+            lambda: FU.local_update_leaves(xs, ys, zs, eta),
             lambda: [ref.fedadc_local_update(x, y, z, eta)
                      for x, y, z in zip(xs, ys, zs)],
             None),
+        # the server step as the strategies call it: Δ̄ = mean_delta/η
+        # folded in
         "server_update": (
-            lambda: [FU.server_update(t, m, d, gamma, ae)
-                     for t, m, d in zip(th, ms, ds)],
-            lambda: [ref.fedadc_server_update(t, m, d, gamma, ae)
+            lambda: list(zip(*FU.server_update_leaves(th, ms, ds, gamma, ae,
+                                                      sc))),
+            lambda: [ref.fedadc_server_update(t, m, d, gamma, ae, sc)
                      for t, m, d in zip(th, ms, ds)],
             None),
         "weighted_reduce": (
@@ -460,15 +469,107 @@ def qsgd_yardsticks(torch, CP, shapes, gen, iters=30):
     return times
 
 
+def host_ms(fn, iters=200):
+    """Mean host time of fn() over `iters` calls, for host-only work."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def update_yardsticks(torch, FU, shapes, gen, iters=30):
+    """{label: ms} of the local and server update sweeps over leaves of
+    `shapes` (fp32; the local step's stacked over K): the table calls,
+    where the checkout has them (the server's with Δ̄ = Δ/η folded in and
+    with scale 1); a loop of one-leaf calls (the per-leaf kernel before the
+    tables, a table of one after them), the server's also with Δ̄ = Δ/η
+    formed by a launch a leaf first (the earlier main path's pattern);
+    torch._foreach_* chains of the same arithmetic (timing only: no one
+    call computes these functions); the host time of the outputs' views
+    made by as_strided a leaf and by one C++ call
+    (unflatten_dense_tensors); and the device ms by kernel of the table
+    calls, or of the one-leaf loops where there are no tables."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).cuda()
+    xs, ys, zs = ([rnd(K, *s) for s in shapes] for _ in range(3))
+    th, ms, ds = ([rnd(*s) for s in shapes] for _ in range(3))
+    eta, gamma, ae, sc = 0.05, 0.2, 0.05, 1 / ETA
+
+    def local_chain():
+        step = torch._foreach_add(ys, zs)
+        torch._foreach_mul_(step, eta)
+        return torch._foreach_sub(xs, step)
+
+    def server_chain():
+        m_new = torch._foreach_mul(ms, gamma)
+        torch._foreach_add_(m_new, torch._foreach_mul(ds, sc))
+        return torch._foreach_sub(th, torch._foreach_mul(m_new, ae)), m_new
+    calls = {
+        "local one-leaf loop": lambda: [
+            FU.local_update(x, y, z, eta) for x, y, z in zip(xs, ys, zs)],
+        "local _foreach chain": local_chain,
+        "server one-leaf loop, delta_bar given": lambda: [
+            FU.server_update(t, m, d, gamma, ae)
+            for t, m, d in zip(th, ms, ds)],
+        "server one-leaf loop + scale": lambda: [
+            FU.server_update(t, m, d * sc, gamma, ae)
+            for t, m, d in zip(th, ms, ds)],
+        "server _foreach chain": server_chain}
+    # a checkout from before the update tables (--kernel-times --src) has
+    # only the one-leaf calls
+    tables = hasattr(FU, "local_update_leaves")
+    if tables:
+        calls["local table"] = lambda: FU.local_update_leaves(xs, ys, zs,
+                                                              eta)
+        calls["server table, scale folded"] = lambda: \
+            FU.server_update_leaves(th, ms, ds, gamma, ae, sc)
+        calls["server table, scale 1"] = lambda: FU.server_update_leaves(
+            th, ms, ds, gamma, ae)
+    times = {label: cuda_ms(torch, fn, iters=iters)
+             for label, fn in calls.items()}
+    # the views a table call hands out: one per leaf of one padded buffer
+    geometry, templates, picks, off = [], [], [], 0
+    for shape in shapes:
+        n, pad = math.prod(shape), -math.prod(shape) % 8
+        st = [1] * len(shape)
+        for d in range(len(shape) - 2, -1, -1):
+            st[d] = st[d + 1] * shape[d + 1]
+        geometry.append((shape, tuple(st), off))
+        picks.append(len(templates))
+        templates.append(torch.empty(shape, device="meta"))
+        if pad:
+            templates.append(torch.empty(pad, device="meta"))
+        off += n + pad
+    buf = torch.empty(off, device="cuda")
+    unflatten = torch._C._nn.unflatten_dense_tensors
+    times["host: views by as_strided"] = host_ms(
+        lambda: [buf.as_strided(sh, st, o) for sh, st, o in geometry])
+    times["host: views by one C++ call"] = host_ms(
+        lambda: (lambda out: [out[i] for i in picks])(
+            unflatten(buf, templates)))
+    # the kernels' own time: the table calls', or the one-leaf loops' of a
+    # checkout without them
+    for step, label in (("local", "local table" if tables
+                         else "local one-leaf loop"),
+                        ("server", "server table, scale folded" if tables
+                         else "server one-leaf loop, delta_bar given")):
+        times[f"device ms by kernel, {step}"] = device_ms_by_kernel(
+            torch, calls[label])
+    return times
+
+
 def kernel_times(torch, gen):
     """{label: ms} of the two kernels this run's yardsticks compare across
     checkouts: the SSD scan at zamba2-1.2b's prefill shape and at L 32768
     (batch 1), B, C and y in fp32 and bf16 (30 calls; 10 at L 32768), and
     QSGD's qsgd_yardsticks over the CNN's 16 leaves and ResNet-18's largest
-    leaf."""
+    leaf, and the update sweeps' update_yardsticks over the CNN's 16
+    leaves, ResNet-18's 76 and its largest leaf."""
     from repro_torch.kernels import compress as CP
+    from repro_torch.kernels import fedadc_update as FU
     from repro_torch.kernels import ssd_scan as SSD
-    from repro_torch.models.vision import cnn_init
+    from repro_torch.models.vision import cnn_init, resnet18_init
     out = {}
     for tag, shape in (("prefill", SSD_SHAPES[-1]),
                        ("L 32768", (1, LONG_L, 64, 64, 64, 256))):
@@ -483,6 +584,12 @@ def kernel_times(torch, gen):
     for tag, shapes in (("CNN", cnn_shapes),
                         ("ResNet-18's largest leaf", [(512, 512, 3, 3)])):
         out[f"qsgd {tag}"] = qsgd_yardsticks(torch, CP, shapes, gen)
+    resnet_shapes = leaf_shapes(resnet18_init(0, n_classes=100,
+                                              device="cpu"))
+    for tag, shapes in (("CNN", cnn_shapes),
+                        ("ResNet-18's 76 leaves", resnet_shapes),
+                        ("ResNet-18's largest leaf", [(512, 512, 3, 3)])):
+        out[f"updates {tag}"] = update_yardsticks(torch, FU, shapes, gen)
     return out
 
 
@@ -543,14 +650,14 @@ def profile_round(torch, sim, round_s, tag, top=12):
 
 def expected_wire_launches(tag, rounds, n_leaves, h_steps):
     """The launches `rounds` nesterov FedADC rounds make on wire `tag`:
-    the axpy, the weighted reduce and QSGD one launch a sweep (per 64
-    leaves), the sparse reduce one call an aggregate, the other kernels one
-    launch a leaf."""
+    the axpy, the server update, the weighted reduce and QSGD one launch a
+    sweep (per 64 leaves), the sparse reduce one call an aggregate, the
+    threshold select one launch a leaf."""
     groups = table_groups(n_leaves)
     per_round = {"fused_axpy": 2 * h_steps * groups,
                  "local_update": 0,
+                 "server_update": groups,
                  # every wire but (b) aggregates dense
-                 "server_update": n_leaves,
                  "weighted_reduce": 0 if tag == "b_topk_sparse" else groups,
                  "threshold_select": n_leaves if tag == "a_topk_dense" else 0,
                  # QSGD on the uplink and on the θ delta of the downlink
@@ -714,6 +821,53 @@ def sweep_kernel_checks(torch, FU, WR, CP, SR, ref, gen, resnet_shapes,
                 raise AssertionError(f"sparse_reduce {vdt}->{odt} {tag} "
                                      f"sweep differs from its plain version")
             errs["sparse_reduce"] = max(errs["sparse_reduce"], e)
+
+
+def update_kernel_checks(torch, FU, ref, gen, resnet_shapes, errs):
+    """The local and server update tables against their plain versions on
+    the card, bit for bit, θ in fp32 and bf16 beside the fp32 momentum, the
+    server's Δ in θ's dtype and in fp32 with the scale 1/η folded in and
+    with scale 1: over ResNet-18's 76 leaves (two table groups), 65 leaves
+    (a full group, then one of one leaf) and an edge sweep (an empty leaf,
+    lengths off the 2048-element tile, a leaf whose pointers are not
+    16-byte aligned: the scalar path)."""
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen).to("cuda", dtype)
+    edge = [(0,), (1,), (3, 5, 7), (1023,), (2047,), (2048,), (2049,),
+            (4097,), (K, 2049)]
+    sixty_five = [(1 + 37 * i,) for i in range(65)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, shapes in (("resnet18", resnet_shapes),
+                            ("65 leaves", sixty_five), ("edge", edge)):
+            th, gs, mb = ([rnd(sh, dtype) for sh in shapes] for _ in range(3))
+            m = [rnd(sh, torch.float32) for sh in shapes]
+            if tag == "edge":   # views one element past an aligned start
+                for leaves, dt in ((th, dtype), (gs, dtype),
+                                   (m, torch.float32)):
+                    leaves.append(rnd(2049 + 1, dt)[1:])
+                mb.append(rnd(2049, dtype))
+            checks = [("local_update", "",
+                       FU.local_update_leaves(th, gs, mb, ETA),
+                       [ref.fedadc_local_update(t, g, b, ETA)
+                        for t, g, b in zip(th, gs, mb)])]
+            for ddt in (dtype, torch.float32):
+                ds = [rnd(tuple(t.shape), ddt) for t in th]
+                for sc in (1 / ETA, 1.0):
+                    checks.append((
+                        "server_update", f", delta {ddt}, scale {sc}",
+                        list(zip(*FU.server_update_leaves(th, m, ds, 0.2,
+                                                          0.05, sc))),
+                        [ref.fedadc_server_update(t, mi, d, 0.2, 0.05, sc)
+                         for t, mi, d in zip(th, m, ds)]))
+            for name, what, got, want in checks:
+                e = max_err(got, want)
+                torch.cuda.synchronize()
+                log(f"check {name} theta {dtype}{what} sweep {tag} "
+                    f"({len(th)} leaves): max |kernel - plain| = {e}")
+                if e != 0.0:
+                    raise AssertionError(f"{name} {dtype}{what} {tag} sweep "
+                                         f"differs from its plain version")
+                errs[name] = max(errs[name], e)
 
 
 def leaf_shapes(params):
@@ -1345,6 +1499,7 @@ def main():
     del vals, idx, oracle, got
     sweep_kernel_checks(torch, FU, WR, CP, SR, ref, gen, resnet_shapes,
                         errs)
+    update_kernel_checks(torch, FU, ref, gen, resnet_shapes, errs)
     # the KD kernels: forward within the reference's bar, backward within
     # 1e-5 of the gradient's largest magnitude (each row is reduced in
     # another order than the plain version's, so not bit for bit)
@@ -1393,6 +1548,10 @@ def main():
         if name == "qsgd":
             log(f"time qsgd over the CNN's leaves, yardsticks: "
                 f"{json.dumps(qsgd_yardsticks(torch, CP, cnn_shapes, gen))}")
+        if name == "server_update":
+            log(f"time the local and server updates over the CNN's leaves, "
+                f"yardsticks: "
+                f"{json.dumps(update_yardsticks(torch, FU, cnn_shapes, gen))}")
         if name in SWEEP_KERNELS:
             lib_fn = next(iter(lib.values())) if isinstance(lib, dict) else lib
             log(f"time {name} over the CNN's leaves, device ms by kernel: "
@@ -1413,6 +1572,10 @@ def main():
         if name == "qsgd":
             log(f"time qsgd on ResNet-18's largest leaf, yardsticks: "
                 f"{json.dumps(qsgd_yardsticks(torch, CP, resnet_leaf, gen))}")
+        if name == "server_update":
+            log(f"time the local and server updates on ResNet-18's largest "
+                f"leaf, yardsticks: "
+                f"{json.dumps(update_yardsticks(torch, FU, resnet_leaf, gen))}")
     # the KD kernels at the FedADC+ CNN's folded (512, 10) (the line's
     # numbers) and an LM vocabulary's (1024, 32768); no single PyTorch call
     # computes this loss, so there is no library time
@@ -1457,8 +1620,8 @@ def main():
     H = fed.local_steps
     groups = table_groups(n_leaves)
     expected = {"fused_axpy": 5 * 2 * H * groups + H * groups,
-                "local_update": H * n_leaves,
-                "server_update": 5 * n_leaves + n_leaves,
+                "local_update": H * groups,
+                "server_update": 5 * groups + groups,
                 "weighted_reduce": 5 * groups + 2 * groups,
                 "threshold_select": 0, "qsgd": 0, "sparse_reduce": 0,
                 "kd_loss": 0, "kd_loss_bwd": 0, "flash_attention": 0,
@@ -1714,6 +1877,10 @@ def main():
                            SimConfig(model="resnet18", n_classes=100,
                                      rounds=1, eval_every=1),
                            x100, y100, xt100, yt100, parts100)
+    rshapes = leaf_shapes(s.params)
+    rsizes = [int(torch.Size(sh).numel()) for sh in rshapes]
+    log(f"resnet18: {len(rshapes)} leaves, {sum(rsizes)} parameters")
+    ops.reset_launch_counts()
     for r in range(2):
         inputs = s.next_round_inputs()
         torch.cuda.synchronize()
@@ -1724,11 +1891,14 @@ def main():
             f"loss {float(loss)}")
         if not torch.isfinite(loss):
             raise AssertionError("resnet18: non-finite loss")
+    counts = ops.launch_counts()
+    want = expected_wire_launches("plain", 2, len(rshapes), 2)
+    log(f"resnet18: launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError("resnet18: kernel launches differ from the "
+                             "count the rounds should make")
     log(f"resnet18: accuracy {s.evaluate()}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    rshapes = leaf_shapes(s.params)
-    rsizes = [int(torch.Size(sh).numel()) for sh in rshapes]
-    log(f"resnet18: {len(rshapes)} leaves, {sum(rsizes)} parameters")
     for name, (kern, plain, lib) in sweeps(torch, FU, WR, ref, rshapes,
                                            torch.float32, gen).items():
         b_ms, b_by = bound(name, rsizes)
@@ -1739,6 +1909,9 @@ def main():
             f"library_ms={lib_ms} bound_ms={b_ms} ({b_by})"
             + (f"; yardsticks {json.dumps(yardsticks)}" if yardsticks
                else ""))
+    log(f"time the local and server updates over ResNet-18's "
+        f"{len(rshapes)} leaves, yardsticks: "
+        f"{json.dumps(update_yardsticks(torch, FU, rshapes, gen, iters=10))}")
     # the sparse reduce over all 76 leaves (one call, two table groups)
     # beside the per-leaf index_add_ sweep; the plain version is not timed
     kern, _, lib = wire_sweeps(torch, CP, SR, ref, rshapes, torch.float32,
@@ -1792,9 +1965,11 @@ def main():
         if not torch.isfinite(loss):
             raise AssertionError("resnet18 fedadc+: non-finite loss")
     counts = ops.launch_counts()
-    log(f"resnet18 fedadc+: launches {counts}")
-    if not counts["kd_loss"] == counts["kd_loss_bwd"] == 2 * 2:
-        raise AssertionError("resnet18 fedadc+: KD launches differ")
+    want = expected_wire_launches("plain", 2, len(rshapes), 2)
+    want.update(kd_loss=2 * 2, kd_loss_bwd=2 * 2)
+    log(f"resnet18 fedadc+: launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError("resnet18 fedadc+: kernel launches differ")
     del s
 
     # -- 7. the port's quickstart -------------------------------------------

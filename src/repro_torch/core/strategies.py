@@ -18,16 +18,16 @@ reference vmaps one client's step.  On CUDA tensors the updates run the
 port's Hopper kernels, launched on the stacked tensors:
 
 * ``_sgd_step`` and the nesterov half-step θ − η·m̄ go through
-  ``fused_axpy_tree`` with a = −η, one launch for every leaf of the tree
-  (x + (−η)·y equals x − η·y bit for bit when the multiply and the add are
-  rounded on their own);
-* the other update kernels launch once per leaf:
-  the heavy-ball step goes through ``fedadc_local_update``, with clip and
-  weight decay applied to g before the call;
-  the FedADC and SlowMo server steps go through ``fedadc_server_update``
-  with Δ̄ = mean_delta/η in fp32, m kept in fp32 and θ cast to the
-  parameter dtype on write, and the server aggregate goes through
-  ``weighted_delta_reduce``.
+  ``fused_axpy_tree`` with a = −η (x + (−η)·y equals x − η·y bit for bit
+  when the multiply and the add are rounded on their own);
+* the heavy-ball step goes through ``fedadc_local_update_tree``, with clip
+  and weight decay applied to g before the call;
+* the FedADC and SlowMo server steps go through
+  ``fedadc_server_update_tree``, which forms Δ̄ = mean_delta/η in fp32 in
+  the same pass, keeps m in fp32 and writes θ in the parameter dtype; the
+  server aggregate goes through ``weighted_delta_reduce_tree``.
+
+Each is one launch for every leaf of the tree (per dtype, per 64 leaves).
 
 The rest of the tree algebra is plain torch, as the reference leaves it to
 XLA.
@@ -97,14 +97,12 @@ def _theta_step(theta_t, m, fed):
     return T.tree_map(lambda nt, t: nt.to(t.dtype), theta, theta_t)
 
 
-def _fused_server_step(theta_t, m, delta_bar, gamma, fed):
-    """m' = Δ̄ + γ·m ; θ' = θ − αη·m' leaf by leaf through the server-update
-    kernel -> (θ', m')."""
-    pairs = T.tree_map(
-        lambda t, mi, di: ops.fedadc_server_update(t, mi, di, gamma,
-                                                   fed.alpha * fed.eta),
-        theta_t, m, delta_bar)
-    return T.unzip2(pairs)
+def _fused_server_step(theta_t, m, mean_delta, gamma, fed):
+    """Δ̄ = mean_delta/η in fp32 ; m' = Δ̄ + γ·m ; θ' = θ − αη·m' over every
+    leaf in one server-update sweep -> (θ', m')."""
+    return ops.fedadc_server_update_tree(theta_t, m, mean_delta, gamma,
+                                         fed.alpha * fed.eta,
+                                         scale=1.0 / fed.eta)
 
 
 def _fp32_zeros_like(params):
@@ -124,10 +122,8 @@ class SlowMo(FedAvg):
         return {"m": _fp32_zeros_like(params)}
 
     def server_update(self, server_state, theta_t, mean_delta, fed):
-        g_bar = T.scale(T.cast(mean_delta, torch.float32),
-                        1.0 / fed.eta)                      # line 12
-        theta, m = _fused_server_step(theta_t, server_state["m"], g_bar,
-                                      fed.beta_global, fed)  # lines 14, 16
+        theta, m = _fused_server_step(theta_t, server_state["m"], mean_delta,
+                                      fed.beta_global, fed)  # lines 12-16
         return theta, {"m": m}
 
 
@@ -172,17 +168,14 @@ class FedADC(FedAvg):
             # decay folded into g before the fused step
             g, aux = grad_fn(theta, batch)
             g = _wd(theta, _maybe_clip(g, fed), fed)
-            theta_new = T.tree_map(
-                lambda t, gi, m: ops.fedadc_local_update(t, gi, m, fed.eta),
-                theta, g, m_bar)
+            theta_new = ops.fedadc_local_update_tree(theta, g, m_bar,
+                                                     fed.eta)
         return theta_new, extra, aux
 
     def server_update(self, server_state, theta_t, mean_delta, fed):
-        delta_bar = T.scale(T.cast(mean_delta, torch.float32),
-                            1.0 / fed.eta)                  # line 16
-        theta, m = _fused_server_step(theta_t, server_state["m"], delta_bar,
+        theta, m = _fused_server_step(theta_t, server_state["m"], mean_delta,
                                       fed.beta_global - fed.beta_local,
-                                      fed)                  # lines 17, 19
+                                      fed)                  # lines 16-19
         return theta, {"m": m}
 
 

@@ -1,30 +1,32 @@
 // Hopper (sm_90a) kernels for the parameter-space updates of one FedADC round.
 //
 // Four kernels, each the CUDA counterpart of one Pallas kernel of the JAX
-// package (src/repro/kernels/):
+// package (src/repro/kernels/), each over a leaf table (leaf_table.cuh):
 //
-//   fedadc_fused_axpy_leaves  out_l = x_l + a*y_l for every leaf l of a table
+//   fedadc_fused_axpy_leaves  out_l = x_l + a*y_l for every leaf l
 //       replaces fedadc_update.py:fused_axpy_2d (_axpy_kernel)
 //       12 B/element in fp32 (read x, y; write out), 6 B in bf16
-//   fedadc_local_update   out = theta - eta*(g + m_bar)
+//   fedadc_local_update_leaves  out_l = theta_l - eta*(g_l + m_bar_l)
 //       replaces fedadc_update.py:local_update_2d (_local_update_kernel)
 //       16 B/element in fp32, 8 B in bf16
-//   fedadc_server_update  m' = delta_bar + gamma*m ; theta' = theta - alpha_eta*m'
-//       replaces fedadc_update.py:server_update_2d (_server_update_kernel)
-//       20 B/element with fp32 theta (m, delta_bar and m' are always fp32)
+//   fedadc_server_update_leaves  delta_bar = s*delta ;
+//       m' = delta_bar + gamma*m ; theta' = theta - alpha_eta*m'
+//       replaces fedadc_update.py:server_update_2d (_server_update_kernel),
+//       with the step that forms delta_bar = mean_delta/eta folded in
+//       (s = 1 is the Pallas kernel itself)
+//       20 B/element with fp32 theta and delta (m and m' are always fp32)
 //   fedadc_weighted_reduce_leaves  out_l = sum_k w[k]*d_l[k] for every leaf l
-//       of a table
 //       replaces weighted_reduce.py:weighted_reduce_2d (_weighted_reduce_kernel)
 //       4(K+1) B/element in fp32, 2(K+1) B in bf16
 //
 // All four do well under one operation per byte, so memory bandwidth bounds
 // them. The design follows from that: one pass over flat contiguous buffers
-// of any length (the ragged tail is masked by the loop bound, no lane
-// padding), neighbouring threads on neighbouring elements so every warp load
-// is coalesced, and no intermediate ever written to device memory. The
-// weighted reduce keeps the fp32 sum in a register and walks the K clients
-// in order inside each thread: a fixed summation order, no atomics, one
-// rounding to the output type on write.
+// of any length (the ragged tail is masked, no lane padding), neighbouring
+// threads on neighbouring elements so every warp load is coalesced, and no
+// intermediate ever written to device memory. The weighted reduce keeps the
+// fp32 sum in a register and walks the K clients in order inside each
+// thread: a fixed summation order, no atomics, one rounding to the output
+// type on write.
 //
 // Arithmetic is fp32 whatever the storage type; bf16 is widened on load and
 // rounded once (round to nearest even) on write. Every multiply and add is
@@ -33,18 +35,21 @@
 // PyTorch versions (repro_torch/kernels/ref.py) bit for bit.
 //
 // The axpy is the local step of every strategy (SGD, and FedADC's nesterov
-// half-step), so it runs 2·H times a round over every leaf of the model;
-// the weighted reduce is the server aggregate, once a round over every
-// leaf.  At the paper CNN's size a leaf is a few microseconds of device
-// time, less than the host's cost of one launch, so both take a leaf table
-// (leaf_table.cuh): one launch covers every leaf of a sweep, each block a
+// half-step) and the local update FedADC's heavy-ball step, so they run H
+// or 2·H times a round over every leaf of the model; the weighted reduce
+// is the server aggregate and the server update the server step, once a
+// round each.  At the paper CNN's size a leaf is a few microseconds of
+// device time, less than the host's cost of one launch, so every kernel
+// takes a whole sweep: one launch covers up to 64 leaves, each block a
 // tile of one leaf.  Where the leaf's pointers are 16-byte aligned a
-// thread moves 16 bytes a load (4 fp32 or 8 bf16 elements); the tile's
-// ragged end, and a leaf that is not aligned, take the scalar path.  The
-// axpy loads all its vectors before it computes; the reduce walks the K
-// clients in order for its vector, K unrolled by 8 so that eight clients'
-// loads are in flight at once (each element's sum still takes them one
-// after another).
+// thread moves 16 bytes a load (the updates: 16 bytes of fp32, 8 of bf16,
+// so that theta in bf16 sits beside an fp32 momentum in one layout); the
+// tile's ragged end, and a leaf that is not aligned, take the scalar path.
+// The axpy and the two updates load all their vectors before they compute,
+// each load contiguous across a warp; the reduce walks the K clients in
+// order for its vector, K unrolled by 8 so that eight clients' loads are
+// in flight at once (each element's sum still takes them one after
+// another).
 //
 // Each entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() so a refused launch is reported to the caller.
@@ -58,7 +63,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 16;  // 16 resident blocks on each of 132 SMs
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -70,11 +74,6 @@ __device__ __forceinline__ void store(float* p, int64_t i, float v) { p[i] = v; 
 __device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
-
-// Grid-stride loop over [0, n).
-#define FOR_EACH_ELEMENT(i, n)                                            \
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < (n); \
-       i += (int64_t)gridDim.x * blockDim.x)
 
 constexpr int64_t kAxpyTile = 2048;  // elements a block; a multiple of 8
 
@@ -164,29 +163,206 @@ axpy_leaves_kernel(const __grid_constant__ leaf_table::AxpyTable t, float a) {
   }
 }
 
+// A thread of the update kernels takes kQuads quads, 4 consecutive elements
+// each, of its block's tile: quad q of thread x starts kThreads*q + x quads
+// into the tile, so each quad's load is contiguous across a warp.  A quad
+// is one 16-byte load in fp32 and one 8-byte load in bf16, so theta in
+// bf16 sits beside an fp32 momentum.
+constexpr int kQuads = 2;
+constexpr int64_t kUpdateTile = kThreads * 4 * kQuads;
+
 template <typename T>
-__global__ void local_update_kernel(const T* __restrict__ theta,
-                                    const T* __restrict__ g,
-                                    const T* __restrict__ m_bar,
-                                    T* __restrict__ out, int64_t n, float eta) {
-  FOR_EACH_ELEMENT(i, n) {
-    float step = __fmul_rn(eta, __fadd_rn(load(g, i), load(m_bar, i)));
-    store(out, i, __fsub_rn(load(theta, i), step));
+struct Quad;
+template <>
+struct Quad<float> {
+  using V = uint4;
+  __device__ static void unpack(uint4 v, float* f) {
+    Vec16<float>::unpack(v, f);
+  }
+  __device__ static uint4 pack(const float* f) { return Vec16<float>::pack(f); }
+};
+template <>
+struct Quad<__nv_bfloat16> {
+  using V = uint2;
+  __device__ static void unpack(uint2 v, float* f) {
+    f[0] = __uint_as_float(v.x << 16);
+    f[1] = __uint_as_float(v.x & 0xffff0000u);
+    f[2] = __uint_as_float(v.y << 16);
+    f[3] = __uint_as_float(v.y & 0xffff0000u);
+  }
+  __device__ static uint2 pack(const float* f) {
+    unsigned w[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      w[j] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * j])) |
+             ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * j + 1]))
+              << 16);
+    return make_uint2(w[0], w[1]);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ typename Quad<T>::V load_quad(const T* p) {
+  return *reinterpret_cast<const typename Quad<T>::V*>(p);
+}
+template <typename T>
+__device__ __forceinline__ void store_quad(T* p, const float* f) {
+  *reinterpret_cast<typename Quad<T>::V*>(p) = Quad<T>::pack(f);
+}
+
+// The tile [lo, hi) of leaf `leaf` that block blockIdx.x takes.
+struct Tile {
+  int leaf;
+  int64_t lo, hi;
+  // the first element of the thread's quad q
+  __device__ __forceinline__ int64_t at(int q) const {
+    return lo + ((int64_t)q * kThreads + threadIdx.x) * 4;
+  }
+};
+__device__ __forceinline__ Tile update_tile(const leaf_table::UpdateTable& t) {
+  const int leaf = leaf_table::find_leaf(t.end, t.n_leaves, blockIdx.x);
+  const int64_t lo =
+      ((int64_t)blockIdx.x - leaf_table::start_of(t.end, leaf)) * kUpdateTile;
+  return {leaf, lo, min(t.n[leaf], lo + kUpdateTile)};
+}
+
+__device__ __forceinline__ float local_step(float theta, float g, float m_bar,
+                                            float eta) {
+  return __fsub_rn(theta, __fmul_rn(eta, __fadd_rn(g, m_bar)));
+}
+
+// theta_l' = theta_l - eta*(g_l + m_bar_l) over a leaf table: a = theta,
+// b = g, c = m_bar, all in T; out0 = theta' in T (out1 unused).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+local_update_leaves_kernel(const __grid_constant__ leaf_table::UpdateTable t,
+                           float eta) {
+  const Tile tile = update_tile(t);
+  const T* theta = static_cast<const T*>(t.a[tile.leaf]);
+  const T* g = static_cast<const T*>(t.b[tile.leaf]);
+  const T* m_bar = static_cast<const T*>(t.c[tile.leaf]);
+  T* out = static_cast<T*>(t.out0[tile.leaf]);
+  if (aligned16(theta) && aligned16(g) && aligned16(m_bar) && aligned16(out)) {
+    typename Quad<T>::V vt[kQuads], vg[kQuads], vm[kQuads];
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      const int64_t i = tile.at(q);
+      if (i + 4 <= tile.hi) {
+        vt[q] = load_quad(theta + i);
+        vg[q] = load_quad(g + i);
+        vm[q] = load_quad(m_bar + i);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      const int64_t i = tile.at(q);
+      if (i + 4 <= tile.hi) {
+        float ft[4], fg[4], fm[4];
+        Quad<T>::unpack(vt[q], ft);
+        Quad<T>::unpack(vg[q], fg);
+        Quad<T>::unpack(vm[q], fm);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ft[j] = local_step(ft[j], fg[j], fm[j], eta);
+        store_quad(out + i, ft);
+      } else {
+        for (int64_t j = i; j < tile.hi; ++j)
+          store(out, j, local_step(load(theta, j), load(g, j),
+                                   load(m_bar, j), eta));
+      }
+    }
+  } else {
+    for (int64_t j = tile.lo + threadIdx.x; j < tile.hi; j += kThreads)
+      store(out, j, local_step(load(theta, j), load(g, j), load(m_bar, j),
+                               eta));
   }
 }
 
-template <typename T>
-__global__ void server_update_kernel(const T* __restrict__ theta,
-                                     const float* __restrict__ m,
-                                     const float* __restrict__ delta_bar,
-                                     T* __restrict__ theta_out,
-                                     float* __restrict__ m_out, int64_t n,
-                                     float gamma, float alpha_eta) {
-  FOR_EACH_ELEMENT(i, n) {
-    float m_new = __fadd_rn(delta_bar[i], __fmul_rn(gamma, m[i]));
-    m_out[i] = m_new;
-    store(theta_out, i, __fsub_rn(load(theta, i), __fmul_rn(alpha_eta, m_new)));
+// m' = s*delta + gamma*m, each product rounded on its own (s = 1 leaves
+// delta as it is: x*1 is exact)
+__device__ __forceinline__ float server_m(float delta, float m, float s,
+                                          float gamma) {
+  return __fadd_rn(__fmul_rn(delta, s), __fmul_rn(gamma, m));
+}
+
+// delta_bar = s*delta ; m' = delta_bar + gamma*m ; theta' = theta -
+// alpha_eta*m' over a leaf table: a = theta in T, b = m in fp32, c = delta
+// in D; out0 = theta' in T, out1 = m' in fp32.
+template <typename T, typename D>
+__global__ void __launch_bounds__(kThreads)
+server_update_leaves_kernel(const __grid_constant__ leaf_table::UpdateTable t,
+                            float gamma, float alpha_eta, float s) {
+  const Tile tile = update_tile(t);
+  const T* theta = static_cast<const T*>(t.a[tile.leaf]);
+  const float* m = static_cast<const float*>(t.b[tile.leaf]);
+  const D* delta = static_cast<const D*>(t.c[tile.leaf]);
+  T* theta_out = static_cast<T*>(t.out0[tile.leaf]);
+  float* m_out = static_cast<float*>(t.out1[tile.leaf]);
+  if (aligned16(theta) && aligned16(m) && aligned16(delta) &&
+      aligned16(theta_out) && aligned16(m_out)) {
+    typename Quad<T>::V vt[kQuads];
+    uint4 vm[kQuads];
+    typename Quad<D>::V vd[kQuads];
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      const int64_t i = tile.at(q);
+      if (i + 4 <= tile.hi) {
+        vt[q] = load_quad(theta + i);
+        vm[q] = load_quad(m + i);
+        vd[q] = load_quad(delta + i);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      const int64_t i = tile.at(q);
+      if (i + 4 <= tile.hi) {
+        float ft[4], fm[4], fd[4];
+        Quad<T>::unpack(vt[q], ft);
+        Quad<float>::unpack(vm[q], fm);
+        Quad<D>::unpack(vd[q], fd);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          fm[j] = server_m(fd[j], fm[j], s, gamma);
+          ft[j] = __fsub_rn(ft[j], __fmul_rn(alpha_eta, fm[j]));
+        }
+        store_quad(m_out + i, fm);
+        store_quad(theta_out + i, ft);
+      } else {
+        for (int64_t j = i; j < tile.hi; ++j) {
+          const float m_new = server_m(load(delta, j), m[j], s, gamma);
+          m_out[j] = m_new;
+          store(theta_out, j,
+                __fsub_rn(load(theta, j), __fmul_rn(alpha_eta, m_new)));
+        }
+      }
+    }
+  } else {
+    for (int64_t j = tile.lo + threadIdx.x; j < tile.hi; j += kThreads) {
+      const float m_new = server_m(load(delta, j), m[j], s, gamma);
+      m_out[j] = m_new;
+      store(theta_out, j,
+            __fsub_rn(load(theta, j), __fmul_rn(alpha_eta, m_new)));
+    }
   }
+}
+
+// Walk n_leaves update-table rows kMaxLeaves at a time and launch(table,
+// blocks) for each group that holds an element.  -> a CUDA error code.
+template <typename Launch>
+int update_groups(const int64_t* rows, int64_t n_leaves, void* out0,
+                  void* out1, Launch launch) {
+  for (int64_t g = 0; g < n_leaves; g += leaf_table::kMaxLeaves) {
+    const int n = (int)(n_leaves - g < leaf_table::kMaxLeaves
+                            ? n_leaves - g : leaf_table::kMaxLeaves);
+    leaf_table::UpdateTable t;
+    if (!leaf_table::make_update_table(rows + g * leaf_table::kUpdateCols, n,
+                                       kUpdateTile, out0, out1, &t))
+      return (int)cudaErrorInvalidValue;
+    if (t.end[n - 1] == 0) continue;
+    launch(t, (unsigned)t.end[n - 1]);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
 }
 
 // out_l = Σ_c w[c]·d_l[c] over a leaf table: a leaf's stack d_l is (K, n)
@@ -238,11 +414,6 @@ reduce_leaves_kernel(const __grid_constant__ leaf_table::AxpyTable t,
   }
 }
 
-inline unsigned blocks_for(int64_t n) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  return (unsigned)(b < kMaxBlocks ? b : kMaxBlocks);
-}
-
 }  // namespace
 
 extern "C" {
@@ -275,41 +446,52 @@ int fedadc_fused_axpy_leaves(const int64_t* rows, int64_t n_leaves,
   return (int)cudaGetLastError();
 }
 
-int fedadc_local_update(const void* theta, const void* g, const void* m_bar,
-                        void* out, int64_t n, float eta, int dtype,
-                        void* stream) {
+// rows: n_leaves host rows of leaf_table::kUpdateCols int64 (theta, g,
+// m_bar, the output's byte offset in `out`, unused, n, end of the leaf's
+// kUpdateTile blocks); all in one dtype.  One launch per kMaxLeaves leaves
+// that hold any element.
+int fedadc_local_update_leaves(const int64_t* rows, int64_t n_leaves,
+                               void* out, float eta, int dtype,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kF32) {
-    local_update_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
-        (const float*)theta, (const float*)g, (const float*)m_bar,
-        (float*)out, n, eta);
-  } else if (dtype == kBF16) {
-    local_update_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)theta, (const __nv_bfloat16*)g,
-        (const __nv_bfloat16*)m_bar, (__nv_bfloat16*)out, n, eta);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
+  return update_groups(rows, n_leaves, out, nullptr,
+                       [&](const leaf_table::UpdateTable& t, unsigned blocks) {
+    if (dtype == kF32)
+      local_update_leaves_kernel<float><<<blocks, kThreads, 0, s>>>(t, eta);
+    else
+      local_update_leaves_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+          t, eta);
+  });
 }
 
-int fedadc_server_update(const void* theta, const void* m,
-                         const void* delta_bar, void* theta_out, void* m_out,
-                         int64_t n, float gamma, float alpha_eta, int dtype,
-                         void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kF32) {
-    server_update_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
-        (const float*)theta, (const float*)m, (const float*)delta_bar,
-        (float*)theta_out, (float*)m_out, n, gamma, alpha_eta);
-  } else if (dtype == kBF16) {
-    server_update_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)theta, (const float*)m, (const float*)delta_bar,
-        (__nv_bfloat16*)theta_out, (float*)m_out, n, gamma, alpha_eta);
-  } else {
+// rows: n_leaves host rows of leaf_table::kUpdateCols int64 (theta, m,
+// delta, theta''s byte offset in `theta_out`, m''s in `m_out`, n, end of
+// the leaf's kUpdateTile blocks); theta in `dtype`, delta in `delta_dtype`,
+// m fp32.  One launch per kMaxLeaves leaves that hold any element.
+int fedadc_server_update_leaves(const int64_t* rows, int64_t n_leaves,
+                                void* theta_out, void* m_out, float gamma,
+                                float alpha_eta, float scale, int dtype,
+                                int delta_dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((dtype != kF32 && dtype != kBF16) ||
+      (delta_dtype != kF32 && delta_dtype != kBF16))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return update_groups(rows, n_leaves, theta_out, m_out,
+                       [&](const leaf_table::UpdateTable& t, unsigned blocks) {
+    if (dtype == kF32 && delta_dtype == kF32)
+      server_update_leaves_kernel<float, float><<<blocks, kThreads, 0, st>>>(
+          t, gamma, alpha_eta, scale);
+    else if (dtype == kF32)
+      server_update_leaves_kernel<float, __nv_bfloat16>
+          <<<blocks, kThreads, 0, st>>>(t, gamma, alpha_eta, scale);
+    else if (delta_dtype == kF32)
+      server_update_leaves_kernel<__nv_bfloat16, float>
+          <<<blocks, kThreads, 0, st>>>(t, gamma, alpha_eta, scale);
+    else
+      server_update_leaves_kernel<__nv_bfloat16, __nv_bfloat16>
+          <<<blocks, kThreads, 0, st>>>(t, gamma, alpha_eta, scale);
+  });
 }
 
 // rows: n_leaves host rows of leaf_table::kAxpyCols int64 (stack, unused,

@@ -17,8 +17,8 @@
 // the rows kMaxLeaves at a time, builds one struct from each group and
 // launches once per group.  The structs stay under the 4 KB limit of a
 // kernel's parameters (AxpyTable 2.6 KB, SparseTable 3.3 KB, QsgdTable
-// 3.0 KB: int32 ends, since 64 leaves of seven int64 fields would be 3.6 KB
-// before the kernel's other parameters).
+// 3.0 KB, UpdateTable 3.3 KB: int32 ends, since 64 leaves of seven int64
+// fields would be 3.6 KB before the kernel's other parameters).
 #pragma once
 
 #include <stdint.h>
@@ -78,6 +78,27 @@ struct QsgdTable {
   int n_leaves;
 };
 
+// The update table: three inputs, up to two outputs, n elements a leaf
+// (the FedADC local and server steps).  The first output takes the first
+// input's dtype, the second is fp32 (the server's momentum); a kernel with
+// one output leaves the second unused.
+// Host row: a, b, c, the first output's byte offset in its buffer, the
+// second's in its own, n, end of the leaf's blocks.
+constexpr int kUpdateCols = 7;
+struct UpdateTable {
+  const void* a[kMaxLeaves];
+  const void* b[kMaxLeaves];
+  const void* c[kMaxLeaves];
+  void* out0[kMaxLeaves];
+  void* out1[kMaxLeaves];
+  int64_t n[kMaxLeaves];
+  int32_t end[kMaxLeaves];
+  int n_leaves;
+};
+static_assert(sizeof(UpdateTable) <= 4096 - 64,
+              "UpdateTable must leave room for the kernel's other parameters "
+              "under the 4 KB limit");
+
 // The leaf whose share of the grid holds unit b: the first leaf whose
 // inclusive end exceeds b (leaves with no units are passed over).
 template <typename I>
@@ -116,6 +137,30 @@ inline bool make_axpy_table(const int64_t* rows, int n, int64_t unit,
     t->end[i] = r[4];
     if (r[3] < 0 || r[4] - prev != cdiv(r[3], unit)) return false;
     prev = r[4];
+  }
+  return true;
+}
+
+// The update table of rows [0, n), out0/out1 the two output buffers (out1
+// may be null: the second output is then unused).  Refuses rows whose ends
+// do not follow from n and the kernel's unit, as make_axpy_table does.
+inline bool make_update_table(const int64_t* rows, int n, int64_t unit,
+                              void* out0, void* out1, UpdateTable* t) {
+  *t = UpdateTable{};
+  t->n_leaves = n;
+  int64_t prev = 0;
+  for (int i = 0; i < n; ++i) {
+    const int64_t* r = rows + (int64_t)i * kUpdateCols;
+    t->a[i] = (const void*)(intptr_t)r[0];
+    t->b[i] = (const void*)(intptr_t)r[1];
+    t->c[i] = (const void*)(intptr_t)r[2];
+    t->out0[i] = static_cast<char*>(out0) + r[3];
+    t->out1[i] = out1 ? static_cast<char*>(out1) + r[4] : nullptr;
+    t->n[i] = r[5];
+    if (r[5] < 0 || r[6] > INT32_MAX || r[6] - prev != cdiv(r[5], unit))
+      return false;
+    prev = r[6];
+    t->end[i] = (int32_t)r[6];
   }
   return true;
 }

@@ -38,8 +38,9 @@ _INT = ctypes.c_int
 SIGNATURES = {
     SOURCES[0]: {
         "fedadc_fused_axpy_leaves": [_P, _I64, _P, _F, _INT, _P],
-        "fedadc_local_update": [_P, _P, _P, _P, _I64, _F, _INT, _P],
-        "fedadc_server_update": [_P, _P, _P, _P, _P, _I64, _F, _F, _INT, _P],
+        "fedadc_local_update_leaves": [_P, _I64, _P, _F, _INT, _P],
+        "fedadc_server_update_leaves": [_P, _I64, _P, _P, _F, _F, _F, _INT,
+                                        _INT, _P],
         "fedadc_weighted_reduce_leaves": [_P, _I64, _P, _P, _I64, _INT, _P],
     },
     SOURCES[1]: {

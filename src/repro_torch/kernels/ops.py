@@ -27,8 +27,8 @@ from repro_torch.kernels import weighted_reduce as _wr
 # the launching wrapper of every kernel, by the name the launch counts use
 KERNELS = {
     "fused_axpy": _fu.fused_axpy_leaves,
-    "local_update": _fu.local_update,
-    "server_update": _fu.server_update,
+    "local_update": _fu.local_update_leaves,
+    "server_update": _fu.server_update_leaves,
     "weighted_reduce": _wr.weighted_reduce_leaves,
     "threshold_select": _cp.threshold_select,
     "qsgd": _cp.qsgd_leaves,
@@ -117,6 +117,44 @@ def fedadc_server_update(theta, m, delta_bar, gamma, alpha_eta):
     if theta.device.type == "cpu":
         return ref.fedadc_server_update(theta, m, delta_bar, gamma, alpha_eta)
     return _fu.server_update(theta, m, delta_bar, gamma, alpha_eta)
+
+
+def fedadc_local_update_tree(theta_tree, g_tree, m_bar_tree, eta):
+    """θ − η(g + m̄) leaf by leaf over three trees of one structure (g and
+    m̄ cast to θ's dtype): on the card one launch a dtype (per 64 leaves)."""
+    ts = T.leaves(theta_tree)
+    gs = [g if g.dtype is t.dtype else g.to(t.dtype)
+          for t, g in zip(ts, T.leaves(g_tree))]
+    ms = [m if m.dtype is t.dtype else m.to(t.dtype)
+          for t, m in zip(ts, T.leaves(m_bar_tree))]
+    if _on_cpu(ts + gs + ms, "local_update"):
+        return _like(theta_tree, [ref.fedadc_local_update(t, g, m, eta)
+                                  for t, g, m in zip(ts, gs, ms)])
+    return _like(theta_tree, _per_dtype(
+        [t.dtype for t in ts],
+        lambda pos: _fu.local_update_leaves([ts[i] for i in pos],
+                                            [gs[i] for i in pos],
+                                            [ms[i] for i in pos], eta)))
+
+
+def fedadc_server_update_tree(theta_tree, m_tree, delta_tree, gamma,
+                              alpha_eta, scale=1.0):
+    """The server step over three trees of one structure: Δ̄ = scale·Δ
+    (Δ in its own dtype, Δ̄ fp32), m' = Δ̄ + γ·m (m fp32), θ' = θ − αη·m'
+    in θ's dtype -> (θ' tree, m' tree).  On the card one launch per (θ,
+    Δ) dtype pair (per 64 leaves)."""
+    ts, ms, ds = T.leaves(theta_tree), T.leaves(m_tree), T.leaves(delta_tree)
+    if _on_cpu(ts + ms + ds, "server_update"):
+        pairs = [ref.fedadc_server_update(t, m, d, gamma, alpha_eta, scale)
+                 for t, m, d in zip(ts, ms, ds)]
+    else:
+        pairs = _per_dtype(
+            [(t.dtype, d.dtype) for t, d in zip(ts, ds)],
+            lambda pos: list(zip(*_fu.server_update_leaves(
+                [ts[i] for i in pos], [ms[i] for i in pos],
+                [ds[i] for i in pos], gamma, alpha_eta, scale))))
+    return (_like(theta_tree, [t for t, _ in pairs]),
+            _like(theta_tree, [m for _, m in pairs]))
 
 
 def weighted_delta_reduce(deltas, weights):

@@ -35,10 +35,11 @@ def fedadc_local_update(theta, g, m_bar, eta):
     return (theta.to(acc) - eta * (g.to(acc) + m_bar.to(acc))).to(theta.dtype)
 
 
-def fedadc_server_update(theta, m, delta_bar, gamma, alpha_eta):
-    """Alg. 3 lines 17+19: m' = Δ̄ + γ·m ; θ' = θ − αη·m'.  -> (θ', m').
-    ``m``/``delta_bar`` stay in their (fp32) dtype; θ' takes θ's dtype."""
-    m_new = delta_bar + gamma * m
+def fedadc_server_update(theta, m, delta, gamma, alpha_eta, scale=1.0):
+    """Alg. 3 lines 16, 17, 19: Δ̄ = scale·Δ ; m' = Δ̄ + γ·m ; θ' = θ −
+    αη·m'.  -> (θ', m').  Δ̄ and m' take m's (fp32) dtype; θ' takes θ's.
+    ``scale`` 1 leaves Δ as it is (x·1 is exact)."""
+    m_new = delta.to(m.dtype) * scale + gamma * m
     acc = acc_dtype(theta.dtype)
     return (theta.to(acc) - alpha_eta * m_new).to(theta.dtype), m_new
 

@@ -50,7 +50,7 @@ def weighted_reduce_leaves(stacks, weights: torch.Tensor):
             raise ValueError(f"weighted_reduce: a stack of {tuple(d.shape)} "
                              f"where {k} clients are stacked")
     shapes = tuple(d.shape[1:] for d in stacks)
-    rows, out, views, launches = sweep_table(
+    rows, out, outs, launches = sweep_table(
         shapes, first.dtype, first.device,
         REDUCE_BYTES // first.element_size())
     rows[:, 0] = [d.data_ptr() for d in stacks]
@@ -58,7 +58,7 @@ def weighted_reduce_leaves(stacks, weights: torch.Tensor):
                  len(stacks), out.data_ptr(), weights.data_ptr(), k,
                  DTYPE_CODE[first.dtype], stream())
     weighted_reduce_leaves.launches += launches
-    return [out.as_strided(shape, st, off) for shape, st, off in views]
+    return outs
 
 
 def weighted_reduce(deltas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

@@ -191,6 +191,67 @@ def test_fused_axpy_sweep_over_many_leaves(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_update_tables_match_plain(dtype):
+    """The local and server update tables over the paper CNN's 16 leaves,
+    ResNet-18's 76 (two table groups) and an edge sweep of 70 (empty
+    leaves, lengths off the 2048-element tile, one leaf not 16-byte
+    aligned): θ in `dtype` beside the fp32 momentum, Δ in θ's dtype and in
+    fp32 with the scale 1/η folded in, each leaf bit for bit its plain
+    version; one launch per 64 leaves."""
+    need_card()
+    from repro_torch.models.vision import cnn_init, resnet18_init
+    g = torch.Generator().manual_seed(11)
+    sweeps = [[tuple(t.shape) for t in T.leaves(p)] for p in (
+        cnn_init(0, width=32, image_size=32, device="cpu"),
+        resnet18_init(0, n_classes=100, device="cpu"))]
+    sweeps.append([(n,) for n in [0, 1, 7, 2047, 2048, 2049, 100_003] * 10])
+    for shapes in sweeps:
+        def rnd(dt):
+            return [torch.randn(s, generator=g).to("cuda", dt)
+                    for s in shapes]
+        th, gs, mb, m = rnd(dtype), rnd(dtype), rnd(dtype), rnd(torch.float32)
+        if len(shapes) == 70:   # one element past an aligned start
+            th[5] = torch.randn(2049 + 1, generator=g).to("cuda", dtype)[1:]
+        ops.reset_launch_counts()
+        got = FU.local_update_leaves(th, gs, mb, 0.05)
+        for o, t, gi, mi in zip(got, th, gs, mb):
+            assert o.shape == t.shape and o.dtype == dtype
+            assert torch.equal(o, ref.fedadc_local_update(t, gi, mi, 0.05))
+        for ddt in (dtype, torch.float32):
+            ds = rnd(ddt)
+            got_t, got_m = FU.server_update_leaves(th, m, ds, 0.2, 0.05,
+                                                   scale=1 / 0.03)
+            for ot, om, t, mi, d in zip(got_t, got_m, th, m, ds):
+                want_t, want_m = ref.fedadc_server_update(t, mi, d, 0.2, 0.05,
+                                                          1 / 0.03)
+                assert ot.dtype == dtype and om.dtype == torch.float32
+                assert torch.equal(ot, want_t) and torch.equal(om, want_m)
+        groups = -(-len(shapes) // 64)
+        assert ops.launch_counts()["local_update"] == groups
+        assert ops.launch_counts()["server_update"] == 2 * groups
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_update_tables_refuse_what_the_kernels_do_not_take():
+    """Leaves of mixed dtypes, a momentum not in fp32 and non-contiguous
+    operands raise on the card before any launch."""
+    need_card()
+    x = torch.randn(4, 10, device="cuda")
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="bfloat16"):
+        FU.local_update_leaves([x, x.bfloat16()], [x, x.bfloat16()],
+                               [x, x.bfloat16()], 0.05)
+    with pytest.raises(ValueError, match="float32"):
+        FU.server_update_leaves([x], [x.bfloat16()], [x], 0.2, 0.05)
+    with pytest.raises(ValueError, match="contiguous"):
+        FU.local_update_leaves([x.t()], [x.t()], [x.t()], 0.05)
+    assert ops.launch_counts()["local_update"] == 0
+    assert ops.launch_counts()["server_update"] == 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("vdt,odt", [(torch.float32, torch.float32),
                                      (torch.bfloat16, torch.bfloat16),
                                      (torch.bfloat16, torch.float32)])
