@@ -6,9 +6,10 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --kernel-times [--src OTHER/src]`` only builds the
-port of this (or another) checkout and times its SSD scan, QSGD sweep and
-local and server update sweeps (``kernel_times``), one JSON line, so that
-two checkouts can be timed in turns on one card.
+port of this (or another) checkout and times its SSD scan, QSGD sweep,
+local and server update sweeps, threshold-select sweep and KD forward
+(``kernel_times``), one JSON line, so that two checkouts can be timed in
+turns on one card.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -22,9 +23,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               kernels (fused_axpy, the local and server updates — the
               server's with the scale 1/eta folded in, theta beside an
               fp32 momentum, delta in theta's dtype and in fp32 — the
-              weighted reduce and QSGD, one launch per 64 leaves, QSGD
-              with each row's scale computed in the call, and the sparse
-              reduce, one call of four kernels per aggregate) also over
+              weighted reduce, QSGD and the threshold select, one launch
+              per 64 leaves, QSGD with each row's scale computed in the
+              call, and the sparse reduce, one call of four kernels per
+              aggregate) also over
               ResNet-18's 76 leaves (two leaf-table groups), over edge
               sweeps (an empty leaf, lengths off the tile, a leaf not
               16-byte aligned, 65 leaves, k = 0, out-of-range indices; for
@@ -37,9 +39,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               the KD forward and backward kernels in fp32 and bf16 at the
               FedADC+ CNN's (512, 10) (K=8 clients x batch 64 folded, 8
               groups of rho), ResNet-18's (512, 100), the reference sweep's
-              (31, 257) and (64, 37) and an LM vocabulary's (1024, 32768),
-              forward within atol 1e-5 + rtol 1e-4, backward within 1e-5 of
-              the gradient's largest magnitude; flash attention in fp32 and
+              (31, 257) and (64, 37), an LM vocabulary's (1024, 32768) and
+              each forward route's boundary (C 1024 and 1025, the largest C
+              one CTA stages and one more), forward within atol 1e-5 +
+              rtol 1e-4, backward within 1e-5 of the gradient's largest
+              magnitude, and the forward on rows with an out-of-range label
+              and ±inf logits (NaN and inf where the plain version has
+              them); flash attention in fp32 and
               bf16 at the reference sweep (MHA, GQA 2, MQA at D 128, L 192,
               windows 32/64/128), zamba2-1.2b's prefill (B 4, H 32, L 2048,
               D 64) and Qwen3's GQA 32/8 at D 128, within 2e-5 / 2e-2 abs +
@@ -56,7 +62,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               function, that call (flash: scaled_dot_product_attention;
               fused_axpy: torch._foreach_add, the per-leaf torch.add sweep
               logged beside it; the weighted reduce: torch.tensordot per
-              leaf; the sparse reduce: index_add_ per leaf; QSGD: the table
+              leaf; the sparse reduce: index_add_ per leaf; the threshold
+              select: torch.where per leaf, with v - q beside it, and a
+              loop of one-leaf calls; QSGD: the table
               call with the scales given and a loop of one-leaf calls with
               and without torch.amax launches; the local and server
               updates, which no one PyTorch call computes: a loop of
@@ -164,7 +172,8 @@ SOURCE = {name: (WIRE_SOURCE if name in ("threshold_select", "qsgd",
 SOURCE["flash_attention"] = "src/repro_torch/csrc/attention_kernels.cu"
 SOURCE["ssd_scan"] = "src/repro_torch/csrc/ssd_kernels.cu"
 # the sweep kernels whose device time is logged beside their library call's
-SWEEP_KERNELS = ("fused_axpy", "weighted_reduce", "sparse_reduce")
+SWEEP_KERNELS = ("fused_axpy", "weighted_reduce", "threshold_select",
+                 "sparse_reduce")
 K = 8
 ETA = 0.01
 TOPK_FRAC = 0.1
@@ -200,11 +209,11 @@ def kernel_name(mangled):
         parts.append(mangled[j:j + int(mangled[i:j])])
         i = j + int(mangled[i:j])
     name = "::".join(p for p in parts if not p.startswith("_GLOBAL__N"))
-    arg = re.match(r"IL[ib](\d+)E", mangled[i:])
-    if arg:
-        return f"{name}<{arg.group(1)}>"
-    return name + ("<bf16>" if mangled[i:i + 17] == "I13__nv_bfloat16E"
-                   else "<f32>" if mangled[i:i + 3] == "IfE" else "")
+    m = re.match(r"I(f|13__nv_bfloat16)?((?:L[ib]\d+E)*)", mangled[i:])
+    args = ([] if not m or not m.group(1)
+            else ["f32" if m.group(1) == "f" else "bf16"])
+    args += re.findall(r"L[ib](\d+)E", m.group(2)) if m else []
+    return f"{name}<{', '.join(args)}>" if args else name
 
 
 def ptxas_usage(build_log):
@@ -397,7 +406,11 @@ def wire_sweeps(torch, CP, SR, ref, shapes, dtype, gen):
     us = [torch.rand((K, *s), generator=gen).to(dev, dtype) for s in shapes]
     taus = [torch.topk(v.reshape(K, -1).abs(), topk_k(v[0].numel()),
                        dim=1).values[:, -1].contiguous() for v in vs]
-    scales = [torch.amax(v.reshape(K, -1).abs(), dim=1) for v in vs]
+    tau_flat = torch.cat(taus).float()
+
+    def where(v, t):
+        return torch.where(v.abs() >= t.reshape((K,) + (1,) * (v.dim() - 1)),
+                           v, zero)
     wires = []
     for v in vs:
         flat = v.reshape(K, -1)
@@ -415,12 +428,16 @@ def wire_sweeps(torch, CP, SR, ref, shapes, dtype, gen):
                   torch.zeros(math.prod(shape), device=dev))
                  for vals, idx, shape in wires]
     return {
+        # the table call, one fp32 threshold a row of every leaf, against
+        # the per-leaf plain version; torch.where computes q only, so the
+        # two-call yardstick with v - q is logged beside it
         "threshold_select": (
-            lambda: [CP.threshold_select(v, t) for v, t in zip(vs, taus)],
+            lambda: list(zip(*CP.threshold_select_leaves(vs, tau_flat))),
             lambda: [ref.topk_threshold_select(v, t)
                      for v, t in zip(vs, taus)],
-            lambda: [torch.where(v.abs() >= t.reshape((K,) + (1,) * (
-                v.dim() - 1)), v, zero) for v, t in zip(vs, taus)]),
+            {"torch.where": lambda: [where(v, t) for v, t in zip(vs, taus)],
+             "torch.where + sub": lambda: [(lambda q: (q, v - q))(where(v, t))
+                                           for v, t in zip(vs, taus)]}),
         # the table call, each row's scale computed in it, against the plain
         # version with torch.amax scales (the same function)
         "qsgd": (
@@ -467,6 +484,58 @@ def qsgd_yardsticks(torch, CP, shapes, gen, iters=30):
         times["device ms by kernel, table"] = device_ms_by_kernel(
             torch, calls["table, scales folded"])
     return times
+
+
+def select_yardsticks(torch, CP, shapes, gen, iters=30):
+    """{label: ms} of the top-k threshold select over leaves of `shapes`
+    stacked over K (fp32, τ each row's 10%-th largest |v|): the table call
+    where the checkout has it, a loop of one-leaf calls (the per-leaf kernel
+    before the table, a table of one after it), torch.where (q only) and
+    torch.where with v - q (the same function in two calls a leaf), and the
+    device ms by kernel of the table call, or of the loop without one."""
+    vs = [torch.randn((K, *s), generator=gen).cuda() for s in shapes]
+    taus = [torch.topk(v.reshape(K, -1).abs(), topk_k(v[0].numel()),
+                       dim=1).values[:, -1].contiguous() for v in vs]
+    flat = torch.cat(taus)
+    zero = torch.zeros((), device="cuda")
+
+    def where(v, t):
+        return torch.where(v.abs() >= t.reshape((K,) + (1,) * (v.dim() - 1)),
+                           v, zero)
+    calls = {
+        "one-leaf loop": lambda: [CP.threshold_select(v, t)
+                                  for v, t in zip(vs, taus)],
+        "torch.where": lambda: [where(v, t) for v, t in zip(vs, taus)],
+        "torch.where + sub": lambda: [(lambda q: (q, v - q))(where(v, t))
+                                      for v, t in zip(vs, taus)]}
+    # a checkout from before the select table (--kernel-times --src) has
+    # only the one-leaf call
+    table = hasattr(CP, "threshold_select_leaves")
+    if table:
+        calls["table"] = lambda: CP.threshold_select_leaves(vs, flat)
+    times = {label: cuda_ms(torch, fn, iters=iters)
+             for label, fn in calls.items()}
+    times["device ms by kernel"] = device_ms_by_kernel(
+        torch, calls["table" if table else "one-leaf loop"])
+    return times
+
+
+def kd_yardsticks(torch, KD, gen, iters=30):
+    """{label: ms} of the KD forward (wall by CUDA events over `iters`
+    calls, and device ms by kernel) at the FedADC+ CNN's folded (512, 10)
+    with 8 groups of ρ, in fp32, and an LM vocabulary's (1024, 32768) in
+    fp32 and bf16."""
+    out = {}
+    for rows, n_classes, groups, dtype in (
+            (512, 10, 8, torch.float32), (1024, 32768, 1, torch.float32),
+            (1024, 32768, 1, torch.bfloat16)):
+        s_, t_, y_, rho_, _ = kd_operands(torch, rows, n_classes, groups,
+                                          dtype, gen)
+        call = lambda: KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
+        tag = f"kd_loss ({rows}, {n_classes}) G={groups} {dtype}"
+        out[tag] = cuda_ms(torch, call, iters=iters)
+        out[f"{tag}, device ms by kernel"] = device_ms_by_kernel(torch, call)
+    return out
 
 
 def host_ms(fn, iters=200):
@@ -560,14 +629,16 @@ def update_yardsticks(torch, FU, shapes, gen, iters=30):
 
 
 def kernel_times(torch, gen):
-    """{label: ms} of the two kernels this run's yardsticks compare across
+    """{label: ms} of the kernels this run's yardsticks compare across
     checkouts: the SSD scan at zamba2-1.2b's prefill shape and at L 32768
     (batch 1), B, C and y in fp32 and bf16 (30 calls; 10 at L 32768), and
     QSGD's qsgd_yardsticks over the CNN's 16 leaves and ResNet-18's largest
-    leaf, and the update sweeps' update_yardsticks over the CNN's 16
-    leaves, ResNet-18's 76 and its largest leaf."""
+    leaf, the update sweeps' update_yardsticks and the threshold select's
+    select_yardsticks over the CNN's 16 leaves, ResNet-18's 76 and its
+    largest leaf, and the KD forward's kd_yardsticks."""
     from repro_torch.kernels import compress as CP
     from repro_torch.kernels import fedadc_update as FU
+    from repro_torch.kernels import kd_loss as KD
     from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.models.vision import cnn_init, resnet18_init
     out = {}
@@ -590,6 +661,9 @@ def kernel_times(torch, gen):
                         ("ResNet-18's 76 leaves", resnet_shapes),
                         ("ResNet-18's largest leaf", [(512, 512, 3, 3)])):
         out[f"updates {tag}"] = update_yardsticks(torch, FU, shapes, gen)
+        out[f"threshold_select {tag}"] = select_yardsticks(torch, CP, shapes,
+                                                           gen)
+    out.update(kd_yardsticks(torch, KD, gen))
     return out
 
 
@@ -650,16 +724,16 @@ def profile_round(torch, sim, round_s, tag, top=12):
 
 def expected_wire_launches(tag, rounds, n_leaves, h_steps):
     """The launches `rounds` nesterov FedADC rounds make on wire `tag`:
-    the axpy, the server update, the weighted reduce and QSGD one launch a
-    sweep (per 64 leaves), the sparse reduce one call an aggregate, the
-    threshold select one launch a leaf."""
+    the axpy, the server update, the weighted reduce, QSGD and the
+    threshold select one launch a sweep (per 64 leaves), the sparse reduce
+    one call an aggregate."""
     groups = table_groups(n_leaves)
     per_round = {"fused_axpy": 2 * h_steps * groups,
                  "local_update": 0,
                  "server_update": groups,
                  # every wire but (b) aggregates dense
                  "weighted_reduce": 0 if tag == "b_topk_sparse" else groups,
-                 "threshold_select": n_leaves if tag == "a_topk_dense" else 0,
+                 "threshold_select": groups if tag == "a_topk_dense" else 0,
                  # QSGD on the uplink and on the θ delta of the downlink
                  # (FedADC's ctx is derived from it, not sent)
                  "qsgd": 2 * groups if tag == "c_qsgd_delta_qsgd" else 0,
@@ -711,15 +785,16 @@ def max_err(got, want):
 
 def sweep_kernel_checks(torch, FU, WR, CP, SR, ref, gen, resnet_shapes,
                         errs):
-    """The four leaf-table kernels against their plain versions on the
-    card, bit for bit, in fp32 and bf16: over ResNet-18's 76 leaves stacked
-    over K (two table groups) and over edge sweeps — an empty leaf, lengths
-    off the axpy's 2048, the weighted reduce's 1024 / 2048, QSGD's 4096 and
-    the sparse reduce's 8192-element tiles, a leaf whose pointers are not
-    16-byte aligned (the scalar path), k = 0, out-of-range indices,
-    duplicate indices within and across clients; for QSGD also against
-    one-leaf calls with the scales given, with an all-zero leaf, a NaN and
-    a -0.0."""
+    """The five leaf-table wire and sweep kernels against their plain
+    versions on the card, bit for bit, in fp32 and bf16: over ResNet-18's 76
+    leaves stacked over K (two table groups) and over edge sweeps — an empty
+    leaf, lengths off the axpy's 2048, the weighted reduce's 1024 / 2048,
+    QSGD's and the threshold select's 4096 and the sparse reduce's
+    8192-element tiles, a leaf whose pointers are not 16-byte aligned (the
+    scalar path), k = 0, out-of-range indices, duplicate indices within and
+    across clients; for QSGD also against one-leaf calls with the scales
+    given, with an all-zero leaf, a NaN and a -0.0; the select also over 65
+    leaves."""
     dev = "cuda"
 
     def rnd(shape, dtype):
@@ -783,6 +858,33 @@ def sweep_kernel_checks(torch, FU, WR, CP, SR, ref, gen, resnet_shapes,
             if bad:
                 raise AssertionError(f"qsgd {dtype} {tag} sweep differs")
             del vs, us, qs, rs
+    # the threshold select's table (one fp32 τ a row of every leaf) against
+    # the plain version leaf by leaf, also over 65 leaves (a full group, then
+    # one of one leaf), and a view one element past an aligned start
+    sixty_five = [(K, 1 + 37 * i) for i in range(65)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, shapes in (("resnet18", r_stacked), ("65 leaves", sixty_five),
+                            ("edge", edge + [(K,)])):
+            vs = [rnd(sh, dtype) for sh in shapes]
+            if tag == "edge":
+                vs.append(rnd(K * 4097 + 1, dtype)[1:].view(K, 4097))
+            taus = [torch.topk(v.reshape(K, -1).abs(),
+                               topk_k(v[0].numel()), dim=1).values[:, -1]
+                    if v[0].numel() else torch.zeros(K, device=dev,
+                                                     dtype=dtype)
+                    for v in vs]
+            got = list(zip(*CP.threshold_select_leaves(
+                vs, torch.cat(taus).float())))
+            e = max_err(got, [ref.topk_threshold_select(v, t)
+                              for v, t in zip(vs, taus)])
+            torch.cuda.synchronize()
+            log(f"check threshold_select {dtype} sweep {tag} ({len(vs)} "
+                f"leaves): max |kernel - plain| = {e}")
+            if e != 0.0:
+                raise AssertionError(f"threshold_select {dtype} {tag} sweep "
+                                     f"differs from its plain version")
+            errs["threshold_select"] = max(errs["threshold_select"], e)
+            del vs, taus, got
     # (n, k, index draw): unique top-k-like, or random with duplicates and
     # out-of-range indices
     r_wire = [(math.prod(sh), topk_k(math.prod(sh)), "unique")
@@ -868,6 +970,110 @@ def update_kernel_checks(torch, FU, ref, gen, resnet_shapes, errs):
                     raise AssertionError(f"{name} {dtype}{what} {tag} sweep "
                                          f"differs from its plain version")
                 errs[name] = max(errs[name], e)
+
+
+def kd_edge_shapes(KD, esize):
+    """(rows, classes, groups of ρ) at each route's boundary of the KD
+    forward: the register route's cap and one more (the first cluster
+    route shape), the largest C one CTA stages and one more (a cluster of
+    two), for logits of `esize` bytes."""
+    single = KD.SLICE_BYTES // (2 * esize)
+    assert KD.cluster_plan(single, esize)[0] == 1
+    assert KD.cluster_plan(single + 1, esize)[0] == 2
+    return [(64, KD.WARP_MAX_C, 4), (64, KD.WARP_MAX_C + 1, 4),
+            (16, single, 2), (16, single + 1, 2)]
+
+
+def kd_special_rows(torch, KD, ref, gen, n_classes, dtype):
+    """The KD forward on 8 rows (2 groups of ρ) holding a label out of
+    range (row 0: NaN loss, CE, KL, true mass and S, the kernel's contract),
+    a teacher -inf on the classes that some lanes' registers or the first
+    CTA's slice hold alone (row 1), a teacher +inf and -inf (row 2), a
+    student -inf on the same classes (row 3) and a student +inf (row 4) ->
+    the largest excess of |kernel - plain| over 1e-5 + 1e-4 |plain| on the
+    finite entries, or inf where NaN or inf entries disagree.  The plain
+    version's CE gathers s_y by a one-hot product, whose 0·inf is NaN on
+    rows 3 and 4: there CE = lse_s - s_y and the loss follow from it."""
+    s_, t_, y_, rho_, _ = kd_operands(torch, 8, n_classes, 2, dtype, gen)
+    j = torch.arange(n_classes, device="cuda")
+    if n_classes <= 32:                  # lanes below C/2
+        dead = j < n_classes // 2
+    elif n_classes <= KD.WARP_MAX_C:     # lanes 0-15 of each row
+        dead = j % 32 < 16
+    else:                                # the first CTA's slice
+        cl, slice_, _ = KD.cluster_plan(
+            n_classes, torch.empty((), dtype=dtype).element_size())
+        dead = j < (slice_ if cl > 1 else n_classes // 2)
+    y_[0], y_[2], y_[3], y_[4] = n_classes, 0, n_classes - 1, n_classes - 1
+    t_[1, dead] = float("-inf")
+    t_[2, 3], t_[2, 5] = float("inf"), float("-inf")
+    s_[3, dead] = float("-inf")
+    s_[4, 1] = float("inf")
+    got = KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
+    want = [w.clone() for w in ref.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)]
+    for r in (3, 4):
+        want[1][r] = want[3][r, 0] - s_[r, y_[r]].float()
+        want[0][r] = (1 - KD_LAM) * want[1][r] + KD_LAM * want[2][r]
+    for w in want[:3]:
+        w[0] = float("nan")
+    want[3][0, 3:] = float("nan")
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        fin = torch.isfinite(b)
+        if not (torch.equal(a.isnan(), b.isnan())
+                and torch.equal(a[~fin & ~b.isnan()], b[~fin & ~b.isnan()])):
+            return float("inf")
+        if fin.any():
+            worst = max(worst, ((a[fin] - b[fin]).abs()
+                                - 1e-4 * b[fin].abs()).max().item())
+    return worst
+
+
+def kd_kernel_checks(torch, KD, ref, gen, errs):
+    """The KD forward and backward against their plain versions on the
+    card in fp32 and bf16: at KD_SHAPES and each route's boundary
+    (kd_edge_shapes), forward within 1e-5 + 1e-4 |plain|, backward within
+    1e-5 of the gradient's largest magnitude (each row is reduced in
+    another order than the plain version's, so not bit for bit); then the
+    forward on rows with an out-of-range label and ±inf logits
+    (kd_special_rows) on both routes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        esize = torch.empty((), dtype=dtype).element_size()
+        for rows, n_classes, groups in KD_SHAPES + kd_edge_shapes(KD, esize):
+            s_, t_, y_, rho_, g_ = kd_operands(torch, rows, n_classes, groups,
+                                               dtype, gen)
+            got = KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
+            want = ref.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
+            e = max_err([got], [want])
+            excess = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
+                         for a, b in zip(got, want))
+            ds = KD.kd_loss_bwd(s_, t_, y_, rho_, got[3], g_, KD_LAM, KD_TAU)
+            ds_plain = ref.kd_loss_bwd(s_, t_, y_, rho_, got[3], g_, KD_LAM,
+                                       KD_TAU)
+            e_bwd = max_err([ds], [ds_plain])
+            rel_bwd = e_bwd / ds_plain.float().abs().max().item()
+            torch.cuda.synchronize()
+            log(f"check kd_loss {dtype} ({rows}, {n_classes}) G={groups}: max "
+                f"|kernel - plain| = {e} (bar 1e-5 + 1e-4 |plain|, excess "
+                f"over rtol {excess}); kd_loss_bwd max |kernel - plain| = "
+                f"{e_bwd}, {rel_bwd} of the largest (bar 1e-5)")
+            if not (excess <= 1e-5 and rel_bwd <= 1e-5):
+                raise AssertionError(f"kd kernels {dtype} ({rows}, "
+                                     f"{n_classes}): differ from plain")
+            errs["kd_loss"] = max(errs["kd_loss"], e)
+            errs["kd_loss_bwd"] = max(errs["kd_loss_bwd"], e_bwd)
+        for n_classes in (10, KD.WARP_MAX_C, KD.WARP_MAX_C + 1,
+                          kd_edge_shapes(KD, esize)[-1][1], 32768):
+            excess = kd_special_rows(torch, KD, ref, gen, n_classes, dtype)
+            torch.cuda.synchronize()
+            log(f"check kd_loss {dtype} C={n_classes} with an out-of-range "
+                f"label and ±inf logits: NaN and inf where the plain version "
+                f"has them, excess over 1e-5 + 1e-4 |plain| elsewhere "
+                f"{excess}")
+            if not excess <= 1e-5:
+                raise AssertionError(f"kd_loss {dtype} C={n_classes}: special "
+                                     f"rows differ from plain")
 
 
 def leaf_shapes(params):
@@ -1500,34 +1706,7 @@ def main():
     sweep_kernel_checks(torch, FU, WR, CP, SR, ref, gen, resnet_shapes,
                         errs)
     update_kernel_checks(torch, FU, ref, gen, resnet_shapes, errs)
-    # the KD kernels: forward within the reference's bar, backward within
-    # 1e-5 of the gradient's largest magnitude (each row is reduced in
-    # another order than the plain version's, so not bit for bit)
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows, n_classes, groups in KD_SHAPES:
-            s_, t_, y_, rho_, g_ = kd_operands(torch, rows, n_classes, groups,
-                                               dtype, gen)
-            got = KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
-            want = ref.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
-            e = max_err([got], [want])
-            excess = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
-                         for a, b in zip(got, want))
-            ds = KD.kd_loss_bwd(s_, t_, y_, rho_, got[3], g_, KD_LAM, KD_TAU)
-            ds_plain = ref.kd_loss_bwd(s_, t_, y_, rho_, got[3], g_, KD_LAM,
-                                       KD_TAU)
-            e_bwd = max_err([ds], [ds_plain])
-            rel_bwd = e_bwd / ds_plain.float().abs().max().item()
-            torch.cuda.synchronize()
-            log(f"check kd_loss {dtype} ({rows}, {n_classes}) G={groups}: max "
-                f"|kernel - plain| = {e} (bar 1e-5 + 1e-4 |plain|, excess "
-                f"over rtol {excess}); kd_loss_bwd max |kernel - plain| = "
-                f"{e_bwd}, {rel_bwd} of the largest (bar 1e-5)")
-            if not (excess <= 1e-5 and rel_bwd <= 1e-5):
-                raise AssertionError(f"kd kernels {dtype} ({rows}, "
-                                     f"{n_classes}): differ from plain")
-            errs["kd_loss"] = max(errs["kd_loss"], e)
-            errs["kd_loss_bwd"] = max(errs["kd_loss_bwd"], e_bwd)
-    del s_, t_, y_, rho_, g_, got, want, ds, ds_plain
+    kd_kernel_checks(torch, KD, ref, gen, errs)
     lm_kernel_checks(torch, FA, SSD, ref, gen, errs)
 
     cnn_sizes = [int(torch.Size(s).numel()) for s in cnn_shapes]
@@ -1548,6 +1727,9 @@ def main():
         if name == "qsgd":
             log(f"time qsgd over the CNN's leaves, yardsticks: "
                 f"{json.dumps(qsgd_yardsticks(torch, CP, cnn_shapes, gen))}")
+        if name == "threshold_select":
+            log(f"time threshold_select over the CNN's leaves, yardsticks: "
+                f"{json.dumps(select_yardsticks(torch, CP, cnn_shapes, gen))}")
         if name == "server_update":
             log(f"time the local and server updates over the CNN's leaves, "
                 f"yardsticks: "
@@ -1579,6 +1761,8 @@ def main():
     # the KD kernels at the FedADC+ CNN's folded (512, 10) (the line's
     # numbers) and an LM vocabulary's (1024, 32768); no single PyTorch call
     # computes this loss, so there is no library time
+    log(f"time kd_loss, yardsticks: "
+        f"{json.dumps(kd_yardsticks(torch, KD, gen))}")
     for rows, n_classes, groups in (KD_SHAPES[0], KD_SHAPES[-1]):
         s_, t_, y_, rho_, g_ = kd_operands(torch, rows, n_classes, groups,
                                            torch.float32, gen)
@@ -1913,14 +2097,22 @@ def main():
         f"{len(rshapes)} leaves, yardsticks: "
         f"{json.dumps(update_yardsticks(torch, FU, rshapes, gen, iters=10))}")
     # the sparse reduce over all 76 leaves (one call, two table groups)
-    # beside the per-leaf index_add_ sweep; the plain version is not timed
-    kern, _, lib = wire_sweeps(torch, CP, SR, ref, rshapes, torch.float32,
-                               gen)["sparse_reduce"]
-    b_ms, b_by = bound("sparse_reduce", rsizes)
-    log(f"time sparse_reduce over ResNet-18's {len(rshapes)} leaves: "
-        f"ms={cuda_ms(torch, kern, iters=10)} "
-        f"library_ms={cuda_ms(torch, lib, iters=10)} bound_ms={b_ms} "
-        f"({b_by})")
+    # beside the per-leaf index_add_ sweep, the threshold select (one call,
+    # two launches) beside torch.where; the plain versions are not timed
+    wire_r = wire_sweeps(torch, CP, SR, ref, rshapes, torch.float32, gen)
+    for name in ("sparse_reduce", "threshold_select"):
+        kern, _, lib = wire_r[name]
+        b_ms, b_by = bound(name, rsizes)
+        lib_ms, yardsticks = time_library(torch, lib, iters=10)
+        log(f"time {name} over ResNet-18's {len(rshapes)} leaves: "
+            f"ms={cuda_ms(torch, kern, iters=10)} library_ms={lib_ms} "
+            f"bound_ms={b_ms} ({b_by})"
+            + (f"; yardsticks {json.dumps(yardsticks)}" if yardsticks
+               else ""))
+    log(f"time threshold_select over ResNet-18's {len(rshapes)} leaves, "
+        f"yardsticks: "
+        f"{json.dumps(select_yardsticks(torch, CP, rshapes, gen, iters=10))}")
+    del wire_r
 
     # ResNet-18 on the sparse top-k wire and on QSGD with the delta+QSGD
     # downlink: one round each after a first one that pays for start-up
@@ -2022,7 +2214,8 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(
         description="On-card smoke run of the PyTorch port.")
     parser.add_argument("--kernel-times", action="store_true",
-                        help="only build and time the SSD scan and QSGD "
+                        help="only build and time the SSD scan, QSGD, the "
+                             "update and select sweeps and the KD forward "
                              "(kernel_times) and print them as one JSON line")
     parser.add_argument("--src", default=str(ROOT / "src"),
                         help="with --kernel-times: the src/ directory whose "

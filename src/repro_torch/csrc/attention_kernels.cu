@@ -349,8 +349,6 @@ constexpr int kBQ = 128;                // query rows a block: 2 warpgroups
 constexpr int kConsumers = 2;           // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
 constexpr int kStages = 3;              // K/V tiles in flight
-// a wait that spins this long has lost its producer: trap, do not hang
-constexpr long long kSpinLimit = 1ll << 22;
 
 template <int D>
 struct Cfg {
@@ -364,37 +362,7 @@ struct Cfg {
   static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);
 };
 
-// -- mbarriers and the tensor memory accelerator ----------------------------
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-// Wait for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (long long i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i == kSpinLimit) asm volatile("trap;");
-  }
-}
+// -- the tensor memory accelerator (the mbarriers: hopper.cuh) --------------
 // One box of a 4-D tensor map into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1, int c2,

@@ -3,8 +3,10 @@
 // Three entry points, each the CUDA counterpart of one Pallas kernel of the
 // JAX package (src/repro/kernels/):
 //
-//   fedadc_threshold_select  q = v*1[|v| >= tau_row] ; r = v - q
-//       replaces compress.py:threshold_select_2d (_threshold_kernel)
+//   fedadc_threshold_select_leaves  q = v*1[|v| >= tau_row] ; r = v - q
+//       for every leaf of a table (the top-k compress of a whole delta, or
+//       one leaf), one fp32 threshold a row; replaces
+//       compress.py:threshold_select_2d (_threshold_kernel)
 //       12 B/element in fp32 (read v; write q, r), 6 B in bf16
 //   fedadc_qsgd_leaves       y = |v|*s/scale_row ; level = floor(y) + 1[u < frac(y)]
 //                            q = sign(v)*level*scale_row/s ; r = v - q
@@ -20,17 +22,19 @@
 //
 // All are far under one operation per byte, so memory bounds them.
 //
-// The select takes a leaf stacked over the round's clients as one flat
-// (rows, n) buffer with one threshold per row, so a whole stacked leaf is
-// one launch: blockIdx.y is the row, a grid-stride loop over x covers the
-// row's n elements, neighbouring threads on neighbouring elements. No
-// (rows, 128) tiling and no lane padding.
-// The QSGD table takes every leaf of a sweep at once (leaf_table.cuh): a
-// block owns kQsgdTile elements of one row of one leaf, and a group of 64
-// leaves is two kernels, the rows' scales (the max of |v| by atomicMax on
-// the bits of non-negative floats: exact in any order, NaN propagating as
-// in torch.amax) into a zeroed fp32 buffer, then the quantisation; the
-// host's per-leaf amax launches and trips through Python go.
+// The select and QSGD take every leaf of a sweep at once, each leaf stacked
+// over the round's clients as one flat (rows, n) buffer with one scalar a
+// row, so a top-k compress or a QSGD compress of a whole delta is one
+// launch per 64 leaves (leaf_table.cuh's QsgdTable, the select's u unused).
+// A block owns kQsgdTile elements of one row of one leaf.  The select is
+// one pass: a thread loads 16 bytes at a time (4 fp32 or 8 bf16 elements),
+// contiguous across a warp, the few elements before the row's first 16-byte
+// boundary and after its last one taken one at a time.  A group of 64
+// leaves of QSGD is two kernels, the rows' scales (the max of |v| by
+// atomicMax on the bits of non-negative floats: exact in any order, NaN
+// propagating as in torch.amax) into a zeroed fp32 buffer, then the
+// quantisation; the host's per-leaf amax launches and trips through Python
+// go.
 //
 // Arithmetic matches the plain PyTorch versions (repro_torch/kernels/ref.py)
 // bit for bit. Every multiply, add and divide is rounded on its own
@@ -87,7 +91,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocksX = 1024;
 constexpr int kTileShift = 13;
 constexpr int kTile = 1 << kTileShift;       // output elements a tile
 constexpr int kChunk = 8192;                 // pairs a chunk
@@ -127,26 +130,6 @@ __device__ __forceinline__ float rnd<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Grid-stride loop over one row's [0, n), the row being blockIdx.y.
-#define FOR_EACH_IN_ROW(i, n)                                             \
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < (n); \
-       i += (int64_t)gridDim.x * blockDim.x)
-
-template <typename T>
-__global__ void threshold_kernel(const T* __restrict__ v,
-                                 const T* __restrict__ thresh,
-                                 T* __restrict__ q, T* __restrict__ r,
-                                 int64_t n) {
-  const int64_t base = blockIdx.y * n;
-  const float tau = load(thresh, blockIdx.y);
-  FOR_EACH_IN_ROW(i, n) {
-    float x = load(v, base + i);
-    float keep = fabsf(x) >= tau ? x : 0.0f;
-    store(q, base + i, keep);
-    store(r, base + i, __fsub_rn(x, keep));
-  }
 }
 
 // A row's factors from its scale, each rounded to T: inv = s / max(scale,
@@ -272,6 +255,92 @@ int launch_qsgd_leaves(const int64_t* rows, int64_t n_leaves, void* out,
       qsgd_leaves_kernel<T><<<blocks, kThreads, 0, s>>>(t, scale, s_levels);
     }
     scale += n_rows;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The threshold select of one element: keep = x where |x| >= tau, else 0,
+// -> keep, and x - keep through `r_out`, both in fp32 (exact: keep is x or
+// 0), so one rounding to T on store gives the plain version's bits.
+__device__ __forceinline__ float select_elem(float x, float tau, float* r_out) {
+  const float keep = fabsf(x) >= tau ? x : 0.0f;
+  *r_out = __fsub_rn(x, keep);
+  return keep;
+}
+
+// The select of every leaf of the table (u unused), each row's threshold
+// one fp32 of `tau` (the rows numbered across the table, as QSGD's scales).
+// Where v, q and r share their offset from a 16-byte boundary, the tile's
+// body goes as 16-byte words, word w of the tile at thread w % kThreads,
+// with streaming cache hints (each byte is touched once; on the H100 they
+// beat plain loads and stores at ResNet-18's largest leaf); the head
+// before the first boundary and the tail after the last word go one
+// element a thread.  Otherwise (a view off the boundary) every element goes
+// one at a time.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+select_leaves_kernel(const __grid_constant__ QsgdTable t,
+                     const float* __restrict__ tau) {
+  using V = leaf_table::Vec16<T>;
+  constexpr int kWords = kQsgdTile / (kThreads * V::kN);   // a thread's
+  static_assert(kWords * kThreads * V::kN == kQsgdTile, "tile");
+  const QsgdRef r = qsgd_ref(t);
+  const int64_t base = r.row * r.n;
+  const T* v = static_cast<const T*>(t.v[r.leaf]) + base;
+  T* q = static_cast<T*>(t.q[r.leaf]) + base;
+  T* rr = static_cast<T*>(t.r[r.leaf]) + base;
+  const float th = tau[leaf_table::start_of(t.row_end, r.leaf) + r.row];
+  const uintptr_t at = (uintptr_t)(v + r.lo);
+  int64_t body = r.hi;   // the first element of the 16-byte body
+  if ((((uintptr_t)(q + r.lo) ^ at) & 15) == 0 &&
+      (((uintptr_t)(rr + r.lo) ^ at) & 15) == 0)
+    body = min(r.hi, r.lo + (int64_t)(((16 - (at & 15)) & 15) / sizeof(T)));
+  const int64_t words = (r.hi - body) / V::kN;
+  const int64_t tail = body + words * V::kN;
+  uint4 x[kWords];   // all of a thread's loads in flight before its stores
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) {
+    const int64_t w = (int64_t)k * kThreads + threadIdx.x;
+    if (w < words)
+      x[k] = __ldcs(reinterpret_cast<const uint4*>(v + body + w * V::kN));
+  }
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) {
+    const int64_t w = (int64_t)k * kThreads + threadIdx.x;
+    if (w < words) {
+      float f[V::kN], fr[V::kN];
+      V::unpack(x[k], f);
+#pragma unroll
+      for (int j = 0; j < V::kN; ++j) f[j] = select_elem(f[j], th, &fr[j]);
+      __stcs(reinterpret_cast<uint4*>(q + body + w * V::kN), V::pack(f));
+      __stcs(reinterpret_cast<uint4*>(rr + body + w * V::kN), V::pack(fr));
+    }
+  }
+  for (int64_t i = r.lo + threadIdx.x; i < body; i += kThreads) {
+    float rv;
+    store(q, i, select_elem(load(v, i), th, &rv));
+    store(rr, i, rv);
+  }
+  for (int64_t i = tail + threadIdx.x; i < r.hi; i += kThreads) {
+    float rv;
+    store(q, i, select_elem(load(v, i), th, &rv));
+    store(rr, i, rv);
+  }
+}
+
+template <typename T>
+int launch_select_leaves(const int64_t* rows, int64_t n_leaves, void* out,
+                         const float* tau, cudaStream_t s) {
+  for (int64_t g = 0; g < n_leaves; g += leaf_table::kMaxLeaves) {
+    const int n = (int)(n_leaves - g < leaf_table::kMaxLeaves
+                            ? n_leaves - g : leaf_table::kMaxLeaves);
+    QsgdTable t;
+    if (!leaf_table::make_qsgd_table(rows + g * leaf_table::kQsgdCols, n,
+                                     kQsgdTile, out, &t))
+      return (int)cudaErrorInvalidValue;
+    const int blocks = t.block_end[n - 1];
+    if (blocks) select_leaves_kernel<T><<<blocks, kThreads, 0, s>>>(t, tau);
+    tau += t.row_end[n - 1];
   }
   return (int)cudaGetLastError();
 }
@@ -621,11 +690,6 @@ sparse_apply_kernel(const __grid_constant__ SparseTable t,
     store(out, tile_start + i, acc[i]);
 }
 
-inline dim3 row_grid(int64_t n, int64_t rows) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  return dim3((unsigned)(b < kMaxBlocksX ? b : kMaxBlocksX), (unsigned)rows);
-}
-
 // Once per process: each of the four kernels may take its largest dynamic
 // shared memory, and all four ask for one carveout (all shared), so the
 // card need not repartition L1 and shared memory between them.
@@ -697,21 +761,20 @@ int launch_sparse_reduce(const int64_t* rows, int64_t n_leaves, const void* w,
 
 extern "C" {
 
-int fedadc_threshold_select(const void* v, const void* thresh, void* q,
-                            void* r, int64_t rows, int64_t n, int dtype,
-                            void* stream) {
+// rows: n_leaves host rows of leaf_table::kQsgdCols int64 (v, u unused,
+// q and r byte offsets into out, n, ends of rows and blocks); tau: one fp32
+// threshold a row of the table (the rows of every group, in order).
+int fedadc_threshold_select_leaves(const int64_t* rows, int64_t n_leaves,
+                                   void* out, const void* tau, int dtype,
+                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kF32) {
-    threshold_kernel<float><<<row_grid(n, rows), kThreads, 0, s>>>(
-        (const float*)v, (const float*)thresh, (float*)q, (float*)r, n);
-  } else if (dtype == kBF16) {
-    threshold_kernel<__nv_bfloat16><<<row_grid(n, rows), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)v, (const __nv_bfloat16*)thresh,
-        (__nv_bfloat16*)q, (__nv_bfloat16*)r, n);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == kF32)
+    return launch_select_leaves<float>(rows, n_leaves, out,
+                                       (const float*)tau, s);
+  if (dtype == kBF16)
+    return launch_select_leaves<__nv_bfloat16>(rows, n_leaves, out,
+                                               (const float*)tau, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // rows: n_leaves host rows of leaf_table::kQsgdCols int64 (v, u, q and r

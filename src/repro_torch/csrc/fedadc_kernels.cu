@@ -77,47 +77,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float v) {
 
 constexpr int64_t kAxpyTile = 2048;  // elements a block; a multiple of 8
 
-// 16 bytes of T as floats and back (bf16 is the upper half of an fp32).
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<float> {
-  static constexpr int kN = 4;
-  __device__ static void unpack(uint4 v, float* f) {
-    f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
-    f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
-  }
-  __device__ static uint4 pack(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void unpack(uint4 v, float* f) {
-    const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      f[2 * j] = __uint_as_float(w[j] << 16);
-      f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
-  }
-  __device__ static uint4 pack(const float* f) {
-    unsigned w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      w[j] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * j])) |
-             ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * j + 1]))
-              << 16);
-    }
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return ((uintptr_t)p & 15) == 0;
-}
+using leaf_table::aligned16;
+using leaf_table::Vec16;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash attention's bf16 route, the SSD scan's): shared-memory addresses,
-// cp.async copies, wgmma shared-memory descriptors for the 128-byte swizzle,
+// (flash attention's bf16 route, the SSD scan's) and the KD loss's staging:
+// shared-memory addresses, cp.async copies, mbarriers and bulk copies,
+// wgmma shared-memory descriptors for the 128-byte swizzle,
 // and the warpgroup products on bf16 operands with fp32 accumulators.
 //
 // The 128-byte swizzle: a tile of 64 bf16 columns (128 bytes a row) is
@@ -33,6 +34,51 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// -- mbarriers, and bulk copies that complete on one -----------------------
+// a wait that spins this long has lost its producer: trap, do not hang
+constexpr long long kSpinLimit = 1ll << 22;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (long long i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == kSpinLimit) asm volatile("trap;");
+  }
+}
+// `bytes` (a multiple of 16) from global memory at `src` to shared memory
+// at `dst` (both 16-byte aligned) by the TMA, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // Byte offset of element (row, col) of a 64-column bf16 tile in the

@@ -18,23 +18,34 @@
 //     from the forward's statistics, one pass over the row.
 //
 // Bound: bytes. The forward reads s and t (B x C each) once from device
-// memory, labels (B), rho (G x C), and writes 8 floats a row; it does a few
-// tens of operations an element (three exps, a log, a divide), far under
-// the card's ~20 fp32 operations per byte of HBM. At the main path's
-// (512, 10) in fp32 that is about 62 KB, some 18 ns at 3.35 TB/s: the
-// launch, not the bytes, sets its time. At (1024, 32768) it is 268 MB,
-// some 80 us. The backward reads s, t and the statistics and writes ds.
+// memory, labels (B), rho (G x C), and writes 8 floats a row. At the main
+// path's (512, 10) in fp32 that is about 62 KB, some 18 ns at 3.35 TB/s:
+// the launch, not the bytes, sets its time. At (1024, 32768) it is 268 MB,
+// some 80 us, and its per-element work (three exps, a log, about twenty
+// adds, multiplies and compares) is of the same order on the CUDA cores.
+// The backward reads s, t and the statistics and writes ds.
 //
-// Design. One row is reduced by one warp (C <= 1024, the CNN's 10 and
-// ResNet-18's 100 classes: eight rows a block) or by one 256-thread block
-// (larger C, up to an LM vocabulary), with a loop over C, so any C works;
-// the TPU kernel's whole-row VMEM block has no counterpart. The forward
-// walks the row three times, the second and third reads coming mostly from
-// L2: (1) the maxima of s and t/tau (max s/tau = max s / tau, division by
-// tau > 0 being monotonic); (2) the three exp-sums; (3) the damped non-true
-// mass, the KL sum and S over j != y. The true class's target needs the
-// whole non-true sum (eq. 9), so its KL term and its share of S are added
-// after the row's reduction, by every thread of the row alike.
+// Design of the forward: each row is read from device memory once. The
+// reductions it needs come in two steps: the three log-sum-exps (of s,
+// s/tau and t/tau), then, given logsumexp(t/tau), the damped non-true mass,
+// the KL sum and S over j != y. The second step cannot fold into the first
+// (each target is clipped: no running rescale makes its sum exact), so the
+// row stays on chip between them:
+//   - C <= kWarpRowMaxC (the CNN's 10 and ResNet-18's 100 classes): a warp
+//     a row, eight rows a block, each lane holding its classes lane + 32k
+//     of s and t in registers (kPer of each, C <= 32 kPer);
+//   - larger C (an LM vocabulary): a thread-block cluster a row, of up to
+//     kMaxCluster CTAs, each staging a slice of the row's s and t in shared
+//     memory by two bulk copies (TMA) completing on an mbarrier, the few
+//     elements off a 16-byte boundary loaded by threads. The slice is sized
+//     so s and t take at most kSliceBytes, three CTAs an SM (the copies of
+//     one overlap the others' work). The reductions cross the cluster
+//     through distributed shared memory.
+// The maxima and exp-sums are one reduction: each thread forms (max, sum
+// of exp(x - max)) of its values, and partials merge by rescaling the sum
+// of the smaller max (Lse below). The true class's target needs the whole
+// non-true sum (eq. 9), so its KL term and its share of S are added after
+// the row's reduction, from the s_y that the thread holding it hands on.
 //
 // ``rho`` is (G, C) with rows_per_group consecutive rows to each group: G=1
 // is one confidence vector for the batch (the reference's signature); G=K
@@ -42,25 +53,43 @@
 //
 // Inputs fp32 or bf16 (s and t the same type), labels int64 in [0, C),
 // rho and statistics fp32, accumulation fp32; ds is written in the logits'
-// type. Exact expf/logf, no fast-math intrinsics. A label outside [0, C)
-// gives NaN in that row. Each entry point launches on the given stream,
-// does not synchronise, and returns cudaGetLastError().
+// type. Exact expf/logf, no fast-math intrinsics; the forward scales by
+// 1/tau (exact for tau a power of two) where the plain version divides.
+// A label outside [0, C) gives NaN in that row; +-inf logits give the
+// log-sum-exps torch.logsumexp gives. Each entry point launches on the
+// given stream, does not synchronise, and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
-constexpr int64_t kWarpRowMaxC = 1024;   // above: one block a row
+// the cluster route's CTA: threads, and CTAs an SM (its launch bounds)
+constexpr int kCtaThreads = 256;
+constexpr int kCtaWarps = kCtaThreads / 32;
+constexpr int kCtasPerSm = 3;
+constexpr int64_t kWarpRowMaxC = 1024;   // above: a cluster a row
 constexpr int kStats = 5;
 constexpr float kClipLo = 1e-9f;
+constexpr int64_t kSliceBytes = 65536;   // s and t of a CTA's slice
+constexpr int kMaxCluster = 8;           // the portable cluster size
+constexpr int64_t kMaxDynSmem = 232448 - 1024;   // less the static part
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 __device__ __forceinline__ float load(const float* p, int64_t i) { return p[i]; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, int64_t i) {
   return __bfloat162float(p[i]);
@@ -73,115 +102,81 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float v) {
 __device__ __forceinline__ float clip(float x) {
   return fminf(fmaxf(x, kClipLo), 1.0f);
 }
+// The forward's clip keeps a NaN, as torch.clamp and jnp.clip do (fminf
+// and fmaxf drop it): an undefined target stays undefined in the loss.
+__device__ __forceinline__ float clip_target(float x) {
+  return isnan(x) ? x : clip(x);
+}
 
-// Reduce N values across the threads of one row: a warp (kRowThreads 32)
-// or the whole block (kRowThreads kBlock, through `scratch`, kWarps * N
-// floats). Every thread of the row gets the results.
-template <int kRowThreads, bool kMax, int N>
-__device__ __forceinline__ void row_reduce(float (&v)[N], float* scratch) {
+// A partial log-sum-exp: m the largest value, z = sum exp(x - base(m)),
+// where base(m) = m if finite, else 0 (torch.logsumexp's shift), so an
+// empty or all -inf partial is (-inf, 0) and one holding +inf is (+inf,
+// inf): no inf - inf. Merging rescales each sum to the larger maximum; a
+// zero sum stays zero (an all -inf partial), a NaN propagates. The merge is
+// commutative bit for bit, so every lane of a butterfly ends alike.
+struct Lse {
+  float m, z;
+};
+__device__ __forceinline__ float lse_base(float m) {
+  return isinf(m) ? 0.0f : m;
+}
+__device__ __forceinline__ float rescaled(Lse a, float base) {
+  return a.z == 0.0f ? 0.0f : a.z * expf(lse_base(a.m) - base);
+}
+__device__ __forceinline__ Lse lse_merge(Lse a, Lse b) {
+  const float m = fmaxf(a.m, b.m), base = lse_base(m);
+  return {m, rescaled(a, base) + rescaled(b, base)};
+}
+__device__ __forceinline__ float lse_value(Lse a) {
+  return logf(a.z) + lse_base(a.m);
+}
+__device__ __forceinline__ void warp_merge(Lse (&p)[3]) {
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
+  for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      float other = __shfl_xor_sync(0xffffffffu, v[k], o);
-      v[k] = kMax ? fmaxf(v[k], other) : v[k] + other;
-    }
-  }
-  if (kRowThreads == 32) return;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // the previous reduction's readers are done
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) scratch[k * kWarps + warp] = v[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    v[k] = lane < kWarps ? scratch[k * kWarps + lane] : (kMax ? -INFINITY : 0.0f);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      float other = __shfl_xor_sync(0xffffffffu, v[k], o);
-      v[k] = kMax ? fmaxf(v[k], other) : v[k] + other;
+    for (int k = 0; k < 3; ++k) {
+      const Lse other = {__shfl_xor_sync(0xffffffffu, p[k].m, o),
+                         __shfl_xor_sync(0xffffffffu, p[k].z, o)};
+      p[k] = lse_merge(p[k], other);
     }
   }
 }
-
-// The row this thread works on and its index within the row.
-template <int kRowThreads>
-__device__ __forceinline__ void row_of(int64_t& row, int& tid) {
-  if (kRowThreads == 32) {
-    row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-    tid = threadIdx.x & 31;
-  } else {
-    row = blockIdx.x;
-    tid = threadIdx.x;
+__device__ __forceinline__ void warp_sum(float (&v)[3]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
   }
 }
 
-template <typename T, int kRowThreads>
-__global__ void __launch_bounds__(kBlock)
-kd_fwd_kernel(const T* __restrict__ s, const T* __restrict__ t,
-              const int64_t* __restrict__ labels,
-              const float* __restrict__ rho, float* __restrict__ loss,
-              float* __restrict__ ce_out, float* __restrict__ kl_out,
-              float* __restrict__ stats, int64_t rows, int64_t C,
-              int64_t rows_per_group, float lam, float tau) {
-  __shared__ float scratch[3 * kWarps];
-  int64_t row;
-  int tid;
-  row_of<kRowThreads>(row, tid);
-  // a whole warp or block is out of range together, so no thread a
-  // reduction waits for has left
-  if (row >= rows) return;
-  const T* s_row = s + row * C;
-  const T* t_row = t + row * C;
-  const float* rho_row = rho + (row / rows_per_group) * C;
-  const int64_t y = labels[row];
-  const bool valid = y >= 0 && y < C;
+// One term of the second step, class j != y: the damped teacher mass d,
+// its target and the KL term, added to acc (non-true mass, kl, S) unless
+// `skip` (the true class: a select, so its term's value never matters).
+__device__ __forceinline__ void target_term(float s_j, float t_over_tau,
+                                            float rho_j, float base_t,
+                                            float inv_zt, float inv_tau,
+                                            float lse_st, bool skip,
+                                            float (&acc)[3]) {
+  const float pt = expf(t_over_tau - base_t) * inv_zt;
+  const float d = (1.0f - rho_j) * pt;
+  const float tgt = clip_target(d);
+  const float kl = tgt * (logf(tgt) - (s_j * inv_tau - lse_st));
+  acc[0] += skip ? 0.0f : d;
+  acc[1] += skip ? 0.0f : kl;
+  acc[2] += skip ? 0.0f : tgt;
+}
 
-  // (1) maxima of s and t / tau
-  float mx[2] = {-INFINITY, -INFINITY};
-  for (int64_t j = tid; j < C; j += kRowThreads) {
-    mx[0] = fmaxf(mx[0], load(s_row, j));
-    mx[1] = fmaxf(mx[1], load(t_row, j) / tau);
-  }
-  row_reduce<kRowThreads, true>(mx, scratch);
-  const float m_s = mx[0], m_st = mx[0] / tau, m_t = mx[1];
-
-  // (2) exp-sums of s, s / tau and t / tau
-  float z[3] = {0.0f, 0.0f, 0.0f};
-  for (int64_t j = tid; j < C; j += kRowThreads) {
-    const float sj = load(s_row, j);
-    z[0] += expf(sj - m_s);
-    z[1] += expf(sj / tau - m_st);
-    z[2] += expf(load(t_row, j) / tau - m_t);
-  }
-  row_reduce<kRowThreads, false>(z, scratch);
-  const float lse_s = logf(z[0]) + m_s;
-  const float lse_st = logf(z[1]) + m_st;
-  const float lse_t = logf(z[2]) + m_t;
-  const float inv_zt = 1.0f / z[2];
-
-  // (3) over the non-true classes: the damped mass, the KL sum and S
-  float acc[3] = {0.0f, 0.0f, 0.0f};   // non-true mass, kl, S
-  for (int64_t j = tid; j < C; j += kRowThreads) {
-    if (j == y) continue;
-    const float pt = expf(load(t_row, j) / tau - m_t) * inv_zt;
-    const float d = (1.0f - rho_row[j]) * pt;
-    const float tgt = clip(d);
-    const float logp = load(s_row, j) / tau - lse_st;
-    acc[0] += d;
-    acc[1] += tgt * (logf(tgt) - logp);
-    acc[2] += tgt;
-  }
-  row_reduce<kRowThreads, false>(acc, scratch);
-  if (tid != 0) return;
+// A row's outputs from its log-sum-exps and non-true sums: the true class
+// once the whole non-true mass is known (eq. 9).
+__device__ __forceinline__ void write_row(
+    int64_t row, bool valid, float lse_s, float lse_st, float lse_t,
+    const float (&acc)[3], float s_y, float lam, float tau,
+    float* __restrict__ loss, float* __restrict__ ce_out,
+    float* __restrict__ kl_out, float* __restrict__ stats) {
   float ce = NAN, kl = NAN, true_mass = NAN, tsum = NAN;
   if (valid) {
-    // the true class, once the whole non-true mass is known (eq. 9)
-    const float s_y = load(s_row, y);
     true_mass = 1.0f - acc[0];
-    const float tgt_y = clip(true_mass);
+    const float tgt_y = clip_target(true_mass);
     kl = (acc[1] + tgt_y * (logf(tgt_y) - (s_y / tau - lse_st))) * (tau * tau);
     tsum = acc[2] + tgt_y;
     ce = lse_s - s_y;
@@ -195,6 +190,247 @@ kd_fwd_kernel(const T* __restrict__ s, const T* __restrict__ t,
   st[2] = lse_t;
   st[3] = true_mass;
   st[4] = tsum;
+}
+
+// C <= 32 kPer: a warp a row, the row in registers.
+template <typename T, int kPer>
+__global__ void __launch_bounds__(kBlock)
+kd_fwd_warp_kernel(const T* __restrict__ s, const T* __restrict__ t,
+                   const int64_t* __restrict__ labels,
+                   const float* __restrict__ rho, float* __restrict__ loss,
+                   float* __restrict__ ce_out, float* __restrict__ kl_out,
+                   float* __restrict__ stats, int64_t rows, int64_t C,
+                   int64_t rows_per_group, float lam, float tau) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  // a whole warp is out of range together
+  if (row >= rows) return;
+  const T* s_row = s + row * C;
+  const T* t_row = t + row * C;
+  const float* rho_row = rho + (row / rows_per_group) * C;
+  const int64_t y = labels[row];
+  const float inv_tau = 1.0f / tau;
+  // the lane's classes lane + 32k, t already over tau; -inf past C
+  float sv[kPer], tv[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int64_t j = lane + 32 * k;
+    sv[k] = j < C ? load(s_row, j) : -INFINITY;
+    tv[k] = j < C ? load(t_row, j) * inv_tau : -INFINITY;
+  }
+  float ms = -INFINITY, mt = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    ms = fmaxf(ms, sv[k]);
+    mt = fmaxf(mt, tv[k]);
+  }
+  const float mst = ms * inv_tau;
+  const float bs = lse_base(ms), bst = lse_base(mst), bt = lse_base(mt);
+  float zs = 0.0f, zst = 0.0f, zt = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    zs += expf(sv[k] - bs);
+    zst += expf(sv[k] * inv_tau - bst);
+    zt += expf(tv[k] - bt);
+  }
+  Lse part[3] = {{ms, zs}, {mst, zst}, {mt, zt}};
+  warp_merge(part);
+  const float lse_s = lse_value(part[0]), lse_st = lse_value(part[1]);
+  const float lse_t = lse_value(part[2]);
+  const float base_t = lse_base(part[2].m), inv_zt = 1.0f / part[2].z;
+  float acc[3] = {0.0f, 0.0f, 0.0f}, mine = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int64_t j = lane + 32 * k;
+    if (j == y) mine = sv[k];
+    if (j < C)
+      target_term(sv[k], tv[k], rho_row[j], base_t, inv_zt, inv_tau, lse_st,
+                  j == y, acc);
+  }
+  warp_sum(acc);
+  const float s_y = __shfl_sync(0xffffffffu, mine, (int)(y & 31));
+  if (lane == 0)
+    write_row(row, y >= 0 && y < C, lse_s, lse_st, lse_t, acc, s_y, lam, tau,
+              loss, ce_out, kl_out, stats);
+}
+
+// The part of a slice that bulk copies take: elements [head, tail), from
+// the first to the last 16-byte boundary in it, `bytes` long.
+struct Span {
+  int64_t head, tail;
+  uint32_t bytes;
+};
+template <typename T>
+__device__ __forceinline__ Span span_of(const T* g, int64_t n) {
+  const int64_t e = sizeof(T);
+  const int64_t head = min(n, (int64_t)((16 - ((uintptr_t)g & 15)) & 15) / e);
+  const int64_t tail = head + (n - head) * e / 16 * 16 / e;
+  return {head, tail, (uint32_t)((tail - head) * e)};
+}
+
+// Stage n elements at g into the slot at `slot`, placed at g's offset from
+// a 16-byte boundary so the bulk part lands aligned -> where element 0 sits.
+// One thread issues the bulk copy on `bar`; every thread loads its share of
+// the head and tail.
+template <typename T>
+__device__ __forceinline__ T* stage(unsigned char* slot, const T* g,
+                                    int64_t n, uint32_t bar) {
+  T* dst = reinterpret_cast<T*>(slot + ((uintptr_t)g & 15));
+  const Span sp = span_of(g, n);
+  if (threadIdx.x == 0 && sp.bytes)
+    hopper::bulk_load(hopper::smem_u32(dst + sp.head), g + sp.head, sp.bytes,
+                      bar);
+  for (int64_t i = threadIdx.x; i < sp.head; i += kCtaThreads) dst[i] = g[i];
+  for (int64_t i = sp.tail + threadIdx.x; i < n; i += kCtaThreads)
+    dst[i] = g[i];
+  return dst;
+}
+
+// C > kWarpRowMaxC: a cluster of cl CTAs a row (blockIdx.x / cl), CTA r
+// taking the row's classes [r slice, (r + 1) slice).
+template <typename T>
+__global__ void __launch_bounds__(kCtaThreads, kCtasPerSm)
+kd_fwd_cluster_kernel(const T* __restrict__ s, const T* __restrict__ t,
+                      const int64_t* __restrict__ labels,
+                      const float* __restrict__ rho, float* __restrict__ loss,
+                      float* __restrict__ ce_out, float* __restrict__ kl_out,
+                      float* __restrict__ stats, int64_t C, int64_t slice,
+                      int64_t rows_per_group, float lam, float tau) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Lse warp_part[kCtaWarps][3], cta_part[3], total[3];
+  __shared__ float warp_acc[kCtaWarps][3], cta_acc[3], s_y;
+  __shared__ __align__(8) uint64_t bar;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cl = (int)cluster.num_blocks();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t row = blockIdx.x / cl;
+  const int64_t lo = rank * slice;
+  const int64_t n = max(min(C, lo + slice) - lo, (int64_t)0);
+  const T* gs = s + row * C + lo;
+  const T* gt = t + row * C + lo;
+
+  // -- stage the slice: s then t, each slot slice elements + 16 bytes ------
+  const uint32_t bar_a = hopper::smem_u32(&bar);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar_a, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    hopper::mbar_expect_tx(bar_a,
+                           span_of(gs, n).bytes + span_of(gt, n).bytes);
+  const T* ss = stage(smem, gs, n, bar_a);
+  const T* ts = stage(smem + slice * sizeof(T) + 16, gt, n, bar_a);
+  __syncthreads();
+  hopper::mbar_wait(bar_a, 0);
+
+  // -- the three log-sum-exps: the thread's, merged over the cluster -------
+  const float inv_tau = 1.0f / tau;
+  const bool unit_tau = tau == 1.0f;   // s/tau is s: one exp fewer
+  float ms = -INFINITY, mt = -INFINITY;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < n; i += kCtaThreads) {
+    ms = fmaxf(ms, to_f(ss[i]));
+    mt = fmaxf(mt, to_f(ts[i]));
+  }
+  mt *= inv_tau;   // a positive scale keeps the maximum's place
+  const float mst = ms * inv_tau;
+  const float bs = lse_base(ms), bst = lse_base(mst), bt = lse_base(mt);
+  float zs = 0.0f, zst = 0.0f, zt = 0.0f;
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < n; i += kCtaThreads) {
+    const float x = to_f(ss[i]);
+    zs += expf(x - bs);
+    if (!unit_tau) zst += expf(x * inv_tau - bst);
+    zt += expf(to_f(ts[i]) * inv_tau - bt);
+  }
+  Lse part[3] = {{ms, zs}, {mst, unit_tau ? zs : zst}, {mt, zt}};
+  warp_merge(part);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) warp_part[warp][k] = part[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      part[k] = lane < kCtaWarps ? warp_part[lane][k] : Lse{-INFINITY, 0.0f};
+    warp_merge(part);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) cta_part[k] = part[k];
+    }
+  }
+  cluster.sync();
+  if (warp == 0) {
+    const Lse* remote = cluster.map_shared_rank(cta_part, lane < cl ? lane : 0);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      part[k] = lane < cl ? remote[k] : Lse{-INFINITY, 0.0f};
+    warp_merge(part);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) total[k] = part[k];
+    }
+  }
+  __syncthreads();
+
+  // -- the non-true sums over the slice, summed over the cluster -----------
+  const float lse_s = lse_value(total[0]), lse_st = lse_value(total[1]);
+  const float lse_t = lse_value(total[2]);
+  const float base_t = lse_base(total[2].m), inv_zt = 1.0f / total[2].z;
+  const int64_t y = labels[row];
+  const float* rho_sl = rho + (row / rows_per_group) * C + lo;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+  for (int64_t i = threadIdx.x; i < n; i += kCtaThreads) {
+    const float sj = to_f(ss[i]);
+    if (lo + i == y) s_y = sj;
+    target_term(sj, to_f(ts[i]) * inv_tau, rho_sl[i], base_t, inv_zt,
+                inv_tau, lse_st, lo + i == y, acc);
+  }
+  warp_sum(acc);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) warp_acc[warp][k] = acc[k];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float a = 0.0f;
+      for (int w = 0; w < kCtaWarps; ++w) a += warp_acc[w][k];
+      cta_acc[k] = a;
+    }
+  }
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    float a[3] = {0.0f, 0.0f, 0.0f};
+    for (int r = 0; r < cl; ++r) {
+      const float* remote = cluster.map_shared_rank(cta_acc, r);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) a[k] += remote[k];
+    }
+    const bool valid = y >= 0 && y < C;
+    const float sy =
+        valid ? *cluster.map_shared_rank(&s_y, (unsigned)(y / slice)) : 0.0f;
+    write_row(row, valid, lse_s, lse_st, lse_t, a, sy, lam, tau, loss, ce_out,
+              kl_out, stats);
+  }
+  cluster.sync();   // no CTA leaves while rank 0 reads its shared memory
+}
+
+// The row this thread works on and its index within the row (backward).
+template <int kRowThreads>
+__device__ __forceinline__ void row_of(int64_t& row, int& tid) {
+  if (kRowThreads == 32) {
+    row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+    tid = threadIdx.x & 31;
+  } else {
+    row = blockIdx.x;
+    tid = threadIdx.x;
+  }
 }
 
 template <typename T, int kRowThreads>
@@ -237,16 +473,68 @@ inline unsigned grid_for(int64_t rows, int64_t C) {
   return (unsigned)(C <= kWarpRowMaxC ? (rows + kWarps - 1) / kWarps : rows);
 }
 
+// The cluster route's shape for C classes of `esize` bytes: the smallest
+// cluster (up to kMaxCluster) whose slices keep s and t within
+// kSliceBytes a CTA, the slice a multiple of 8 elements, and the dynamic
+// shared memory (two slots, each 16 bytes over for the alignment shift).
+struct ClusterPlan {
+  int cl;
+  int64_t slice, smem;
+};
+inline ClusterPlan cluster_plan(int64_t C, int64_t esize) {
+  int cl = 1;
+  while (cl < kMaxCluster && (C + cl - 1) / cl * 2 * esize > kSliceBytes)
+    cl *= 2;
+  const int64_t slice = ((C + cl - 1) / cl + 7) / 8 * 8;
+  return {cl, slice, 2 * (slice * esize + 16)};
+}
+
 template <typename T>
-void launch_fwd(const void* s, const void* t, const void* labels,
-                const void* rho, void* loss, void* ce, void* kl, void* stats,
-                int64_t rows, int64_t C, int64_t rpg, float lam, float tau,
-                cudaStream_t st) {
-  auto kernel = C <= kWarpRowMaxC ? kd_fwd_kernel<T, 32> : kd_fwd_kernel<T, kBlock>;
-  kernel<<<grid_for(rows, C), kBlock, 0, st>>>(
-      (const T*)s, (const T*)t, (const int64_t*)labels, (const float*)rho,
-      (float*)loss, (float*)ce, (float*)kl, (float*)stats, rows, C, rpg, lam,
-      tau);
+int launch_fwd(const void* s_, const void* t_, const void* labels_,
+               const void* rho_, void* loss_, void* ce_, void* kl_,
+               void* stats_, int64_t rows, int64_t C, int64_t rpg, float lam,
+               float tau, cudaStream_t st) {
+  const T* s = (const T*)s_;
+  const T* t = (const T*)t_;
+  const int64_t* labels = (const int64_t*)labels_;
+  const float* rho = (const float*)rho_;
+  float *loss = (float*)loss_, *ce = (float*)ce_, *kl = (float*)kl_;
+  float* stats = (float*)stats_;
+  if (C <= kWarpRowMaxC) {   // a lane holds kPer classes: C <= 32 kPer
+    auto kernel = C <= 32    ? kd_fwd_warp_kernel<T, 1>
+                  : C <= 64  ? kd_fwd_warp_kernel<T, 2>
+                  : C <= 128 ? kd_fwd_warp_kernel<T, 4>
+                  : C <= 256 ? kd_fwd_warp_kernel<T, 8>
+                  : C <= 512 ? kd_fwd_warp_kernel<T, 16>
+                             : kd_fwd_warp_kernel<T, 32>;
+    kernel<<<(unsigned)((rows + kWarps - 1) / kWarps), kBlock, 0, st>>>(
+        s, t, labels, rho, loss, ce, kl, stats, rows, C, rpg, lam, tau);
+    return (int)cudaGetLastError();
+  }
+  const ClusterPlan p = cluster_plan(C, sizeof(T));
+  if (p.smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
+  // once per process: the kernel may take up to kMaxDynSmem
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kd_fwd_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kMaxDynSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchAttribute cluster_dim;
+  cluster_dim.id = cudaLaunchAttributeClusterDimension;
+  cluster_dim.val.clusterDim.x = p.cl;
+  cluster_dim.val.clusterDim.y = 1;
+  cluster_dim.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(rows * p.cl));
+  cfg.blockDim = dim3(kCtaThreads);
+  cfg.dynamicSmemBytes = (size_t)p.smem;
+  cfg.stream = st;
+  cfg.attrs = &cluster_dim;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kd_fwd_cluster_kernel<T>, s, t, labels, rho, loss, ce, kl, stats,
+      C, p.slice, rpg, lam, tau);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -271,16 +559,13 @@ int fedadc_kd_loss_fwd(const void* s, const void* t, const void* labels,
                        int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (rows_per_group < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == kF32) {
-    launch_fwd<float>(s, t, labels, rho, loss, ce, kl, stats, rows, C,
-                      rows_per_group, lam, tau, st);
-  } else if (dtype == kBF16) {
-    launch_fwd<__nv_bfloat16>(s, t, labels, rho, loss, ce, kl, stats, rows,
-                              C, rows_per_group, lam, tau, st);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == kF32)
+    return launch_fwd<float>(s, t, labels, rho, loss, ce, kl, stats, rows, C,
+                             rows_per_group, lam, tau, st);
+  if (dtype == kBF16)
+    return launch_fwd<__nv_bfloat16>(s, t, labels, rho, loss, ce, kl, stats,
+                                     rows, C, rows_per_group, lam, tau, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 int fedadc_kd_loss_bwd(const void* s, const void* t, const void* labels,

@@ -21,12 +21,56 @@
 // fields would be 3.6 KB before the kernel's other parameters).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 #include <limits.h>
 
 namespace leaf_table {
 
 constexpr int kMaxLeaves = 64;
+
+// 16 bytes of T as floats and back (bf16 is the upper half of an fp32):
+// the one load or store a thread makes of 4 fp32 or 8 bf16 elements.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  __device__ static void unpack(uint4 v, float* f) {
+    f[0] = __uint_as_float(v.x); f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z); f[3] = __uint_as_float(v.w);
+  }
+  __device__ static uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void unpack(uint4 v, float* f) {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[2 * j] = __uint_as_float(w[j] << 16);
+      f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  }
+  __device__ static uint4 pack(const float* f) {
+    unsigned w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      w[j] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * j])) |
+             ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f[2 * j + 1]))
+              << 16);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
 
 // The elementwise table: two inputs, one output, n elements a leaf.
 // Host row: a, b, the output's byte offset in the sweep's buffer, n, end
@@ -64,7 +108,9 @@ struct SparseTable {
 // The QSGD table: per leaf its stacked (rows, n) operand v and draws u,
 // the outputs q and r (byte offsets into the call's output buffer), n, and
 // two ends: rows (numbering each leaf's rows across the group, the index of
-// its per-row scale) and blocks (rows x tiles of a row).
+// its per-row scale) and blocks (rows x tiles of a row).  The top-k
+// threshold select takes the same table with u unused (0) and each row's
+// threshold in the scale's place.
 // Host row: v, u, q offset, r offset, n, row end, block end.
 constexpr int kQsgdCols = 7;
 struct QsgdTable {

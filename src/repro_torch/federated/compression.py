@@ -167,11 +167,11 @@ class TopKCompressor(Compressor):
         return max(1, int(math.ceil(self.frac * n)))
 
     def compress(self, delta, ef, key):
-        def leaf(x):
+        def tau(x):
             flat = torch.abs(_rows(x))
-            thresh = torch.topk(flat, self._k(flat.shape[1]), dim=1).values
-            return ops.topk_compress_leaf(x, thresh[:, -1])
-        return T.unzip2(T.tree_map(leaf, T.add(delta, ef)))
+            return torch.topk(flat, self._k(flat.shape[1]), dim=1).values[:, -1]
+        v = T.add(delta, ef)
+        return ops.topk_compress_tree(v, T.tree_map(tau, v))
 
     def wire_nbytes(self, tree) -> int:
         bits = 0

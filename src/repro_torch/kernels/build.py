@@ -44,7 +44,7 @@ SIGNATURES = {
         "fedadc_weighted_reduce_leaves": [_P, _I64, _P, _P, _I64, _INT, _P],
     },
     SOURCES[1]: {
-        "fedadc_threshold_select": [_P, _P, _P, _P, _I64, _I64, _INT, _P],
+        "fedadc_threshold_select_leaves": [_P, _I64, _P, _P, _INT, _P],
         "fedadc_qsgd_leaves": [_P, _I64, _P, _P, _INT, _F, _INT, _P],
         "fedadc_sparse_reduce_leaves": [_P, _I64, _P, _I64, _P, _P, _P,
                                         _INT, _INT, _P],

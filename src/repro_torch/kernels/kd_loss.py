@@ -16,12 +16,18 @@ below carry a ``vmap`` rule that folds the vmapped client axis into the
 row axis — K clients of b rows become K·b rows, their ρ K groups — and
 launches once for all clients.
 
+The forward reads each row of s and t from device memory once: a warp a
+row with the row in registers up to ``WARP_MAX_C`` classes, above that a
+thread-block cluster a row with the row staged in shared memory
+(``cluster_plan``), up to ``max_classes``.
+
 Each kernel wrapper checks its operands and raises on what the kernel does
-not take, allocates its outputs with ``torch.empty``, launches on the
-current stream, raises if the launch reports an error, and counts its
-launches in a plain integer attribute.  The Functions take the plain
-versions (``ref.kd_loss``, ``ref.kd_loss_bwd``) for CPU tensors and the
-kernels for CUDA tensors, and nothing else picks the path.
+not take, allocates its outputs with ``torch.empty`` (the forward's four in
+one buffer), launches on the current stream, raises if the launch reports
+an error, and counts its launches in a plain integer attribute.  The
+Functions take the plain versions (``ref.kd_loss``, ``ref.kd_loss_bwd``)
+for CPU tensors and the kernels for CUDA tensors, and nothing else picks
+the path.
 """
 from __future__ import annotations
 
@@ -31,10 +37,44 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.fedadc_update import DTYPE_CODE, check_operands, stream
 
 N_STATS = len(ref.KD_STATS)
+WARP_MAX_C = 1024        # kWarpRowMaxC in csrc/kd_kernels.cu: registers
+SLICE_BYTES = 65536      # kSliceBytes: s and t of a cluster CTA's slice
+MAX_CLUSTER = 8          # kMaxCluster
+MAX_DYN_SMEM = 232448 - 1024   # kMaxDynSmem
+
+
+def cluster_plan(n_classes: int, esize: int):
+    """The cluster route's shape for C > WARP_MAX_C classes of ``esize``
+    bytes, as ``cluster_plan`` in the .cu computes it -> (CTAs a row,
+    classes a CTA, dynamic shared memory bytes a CTA)."""
+    cl = 1
+    while cl < MAX_CLUSTER and -(-n_classes // cl) * 2 * esize > SLICE_BYTES:
+        cl *= 2
+    slice_ = (-(-n_classes // cl) + 7) // 8 * 8
+    return cl, slice_, 2 * (slice_ * esize + 16)
+
+
+def max_classes(esize: int) -> int:
+    """The largest C the forward takes for logits of ``esize`` bytes: eight
+    CTAs whose slices fill the shared memory a block can have."""
+    slice_ = ((MAX_DYN_SMEM // 2 - 16) // esize) // 8 * 8
+    return MAX_CLUSTER * slice_
 
 
 def _check(name, s, t, labels, rho):
-    """Check the operands both kernels share -> (rows, C, rows per group)."""
+    """Check the operands both kernels share -> (rows, C, rows per group).
+    One test of everything the kernels need; only a failure re-derives
+    which operand is at fault."""
+    if (s.is_cuda and s.dtype in DTYPE_CODE and s.dim() == 2
+            and s.shape[1] > 0 and t.dtype is s.dtype and t.shape == s.shape
+            and t.device == s.device and s.is_contiguous()
+            and t.is_contiguous() and labels.device == s.device
+            and labels.dtype is torch.int64 and labels.shape == s.shape[:1]
+            and labels.is_contiguous() and rho.device == s.device
+            and rho.dtype is torch.float32 and rho.dim() == 2
+            and rho.shape[1] == s.shape[1] and rho.shape[0] > 0
+            and rho.is_contiguous() and s.shape[0] % rho.shape[0] == 0):
+        return s.shape[0], s.shape[1], max(s.shape[0] // rho.shape[0], 1)
     check_operands(name, s, t)
     if s.dim() != 2 or s.shape[1] == 0:
         raise ValueError(f"{name}: logits must be (B, C) with C > 0, got "
@@ -62,11 +102,16 @@ def kd_loss(s: torch.Tensor, t: torch.Tensor, labels: torch.Tensor,
             rho: torch.Tensor, lam: float, tau: float):
     """Student and teacher logits (B, C) fp32 or bf16 (one dtype), labels
     (B,) int64 in [0, C), ρ (G, C) fp32 -> (loss, ce, kl, stats): (B,) fp32
-    each, stats (B, 5) fp32."""
+    each, stats (B, 5) fp32, all views of one buffer."""
     rows, n_classes, rpg = _check("kd_loss", s, t, labels, rho)
-    loss, ce, kl = (torch.empty(rows, dtype=torch.float32, device=s.device)
-                    for _ in range(3))
-    stats = torch.empty((rows, N_STATS), dtype=torch.float32, device=s.device)
+    if n_classes > WARP_MAX_C and n_classes > max_classes(s.element_size()):
+        raise ValueError(f"kd_loss: {n_classes} classes exceed the "
+                         f"{max_classes(s.element_size())} a cluster of "
+                         f"{MAX_CLUSTER} CTAs stages in {s.dtype}")
+    out = torch.empty((3 + N_STATS) * rows, dtype=torch.float32,
+                      device=s.device)
+    loss, ce, kl = out[:rows], out[rows:2 * rows], out[2 * rows:3 * rows]
+    stats = out[3 * rows:].view(rows, N_STATS)
     if rows:
         build.launch("fedadc_kd_loss_fwd", s.data_ptr(), t.data_ptr(),
                      labels.data_ptr(), rho.data_ptr(), loss.data_ptr(),
@@ -100,14 +145,28 @@ kd_loss.launches = 0
 kd_loss_bwd.launches = 0
 
 
+def _contig(x, dtype=None):
+    """x in ``dtype`` (if given) and contiguous, untouched where it is."""
+    if dtype is not None and x.dtype is not dtype:
+        x = x.to(dtype)
+    return x if x.is_contiguous() else x.contiguous()
+
+
 def _fold(batch_size, in_dims, tensors):
     """The vmap rules' fold: bring each vmapped dim to the front, expand an
     unbatched tensor to the batch, and merge the batch axis into the first
-    (row or group) axis: (K, b, ...) -> (K·b, ...)."""
+    (row or group) axis: (K, b, ...) -> (K·b, ...), a view where the
+    operand allows (batched at dim 0 and contiguous).  An unbatched ρ of
+    one group stays one group: it serves every row of every client."""
     out = []
-    for x, d in zip(tensors, in_dims):
-        x = x.movedim(d, 0) if d is not None \
-            else x.expand((batch_size,) + x.shape)
+    for i, (x, d) in enumerate(zip(tensors, in_dims)):
+        if d is None and i == 3 and x.shape[0] == 1:
+            out.append(x)
+            continue
+        if d is None:
+            x = x.expand((batch_size,) + x.shape)
+        elif d:
+            x = x.movedim(d, 0)
         out.append(x.flatten(0, 1))
     return out
 
@@ -121,9 +180,8 @@ class KDLoss(torch.autograd.Function):
     def forward(s, t, labels, rho, lam, tau):
         if s.device.type == "cpu":
             return ref.kd_loss(s, t, labels, rho, lam, tau)
-        return kd_loss(s.contiguous(), t.contiguous(),
-                       labels.long().contiguous(), rho.float().contiguous(),
-                       lam, tau)
+        return kd_loss(_contig(s), _contig(t), _contig(labels, torch.int64),
+                       _contig(rho, torch.float32), lam, tau)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -155,10 +213,10 @@ class KDLossBackward(torch.autograd.Function):
     def forward(s, t, labels, rho, stats, g, lam, tau):
         if s.device.type == "cpu":
             return ref.kd_loss_bwd(s, t, labels, rho, stats, g, lam, tau)
-        return kd_loss_bwd(s.contiguous(), t.contiguous(),
-                           labels.long().contiguous(),
-                           rho.float().contiguous(), stats.contiguous(),
-                           g.float().contiguous(), lam, tau)
+        return kd_loss_bwd(_contig(s), _contig(t),
+                           _contig(labels, torch.int64),
+                           _contig(rho, torch.float32), _contig(stats),
+                           _contig(g, torch.float32), lam, tau)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

@@ -30,7 +30,7 @@ KERNELS = {
     "local_update": _fu.local_update_leaves,
     "server_update": _fu.server_update_leaves,
     "weighted_reduce": _wr.weighted_reduce_leaves,
-    "threshold_select": _cp.threshold_select,
+    "threshold_select": _cp.threshold_select_leaves,
     "qsgd": _cp.qsgd_leaves,
     "sparse_reduce": _sr.sparse_reduce_leaves,
     "kd_loss": _kd.kd_loss,
@@ -221,6 +221,31 @@ def topk_compress_leaf(v, thresh):
     if v.device.type == "cpu":
         return ref.topk_threshold_select(v, thresh)
     return _cp.threshold_select(v.contiguous(), thresh.contiguous())
+
+
+def topk_compress_tree(vs_tree, taus_tree):
+    """The magnitude-threshold select of every leaf of a tree of
+    client-stacked leaves (B, ...), each with its rows' thresholds τ (B,)
+    in ``taus_tree`` (a tree of the same structure; top-k's k-th largest
+    |v| a row) -> (q tree, residual tree).  fp32 or bf16 leaves.  On the
+    card one call a dtype, the group's τs concatenated to one fp32 vector
+    (exact), one launch per 64 leaves; on the CPU the per-leaf plain
+    version."""
+    vs, taus = T.leaves(vs_tree), T.leaves(taus_tree)
+    for v in vs:
+        if v.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"threshold_select: dtype {v.dtype} not "
+                             f"supported (float32, bfloat16)")
+    if not vs or _on_cpu(vs + taus, "threshold_select"):
+        pairs = [ref.topk_threshold_select(v, t) for v, t in zip(vs, taus)]
+    else:
+        pairs = _per_dtype(
+            [v.dtype for v in vs],
+            lambda pos: list(zip(*_cp.threshold_select_leaves(
+                [vs[i].contiguous() for i in pos],
+                torch.cat([taus[i] for i in pos]).float()))))
+    return (_like(vs_tree, [q for q, _ in pairs]),
+            _like(vs_tree, [r for _, r in pairs]))
 
 
 def topk_sparse_leaf(v, k):

@@ -332,7 +332,8 @@ def test_dense_and_sparse_topk_rounds_on_the_card():
     finally:
         torch.backends.cudnn.deterministic = det
     n_leaves = len(T.leaves(updates[0]))
-    assert counts[0]["threshold_select"] == n_leaves
+    # the dense select is one launch a compress per 64 leaves
+    assert counts[0]["threshold_select"] == -(-n_leaves // 64)
     assert counts[0]["sparse_reduce"] == 0
     # the sparse aggregate is one call for all leaves
     assert counts[1]["sparse_reduce"] == 1
@@ -681,4 +682,118 @@ def test_flash_attention_bf16_at_the_smoke_shapes():
                                    window).transpose(1, 2)
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_select_table_matches_plain(dtype):
+    """The threshold select over a leaf table equals the per-leaf plain
+    version bit for bit over the CNN's 16 leaves, ResNet-18's 76 (two
+    groups), 65 leaves and an edge sweep (an empty leaf, a scalar, lengths
+    off the 4096 tile and off the 16-byte word, a leaf one element past an
+    aligned start: the one-at-a-time path), stacked over 8 clients; the tree
+    form launches once a group of 64 leaves, and the one-leaf form (a table
+    of one) agrees."""
+    need_card()
+    from repro_torch.models.vision import cnn_init, resnet18_init
+    g = torch.Generator().manual_seed(13)
+    sweeps = {
+        "cnn": [tuple(t.shape) for t in T.leaves(cnn_init(
+            0, width=32, image_size=32, device="cpu"))],
+        "resnet18": [tuple(t.shape) for t in T.leaves(resnet18_init(
+            0, n_classes=100, device="cpu"))],
+        "65 leaves": [(1 + 37 * i,) for i in range(65)],
+        "edge": [(0,), (), (1,), (3, 5, 7), (4095,), (4096,), (4097,),
+                 (8193,), (13,)]}
+    for tag, shapes in sweeps.items():
+        vs = [torch.randn((8, *sh), generator=g).to("cuda", dtype)
+              for sh in shapes]
+        if tag == "edge":   # a view one element past an aligned start
+            vs.append(torch.randn(8 * 4097 + 1, generator=g).to(
+                "cuda", dtype)[1:].view(8, 4097))
+        taus = [torch.topk(v.reshape(8, -1).abs(), max(1, v[0].numel() // 10),
+                           dim=1).values[:, -1].contiguous()
+                if v[0].numel() else torch.zeros(8, device="cuda",
+                                                 dtype=dtype)
+                for v in vs]
+        ops.reset_launch_counts()
+        q, r = ops.topk_compress_tree({str(i): v for i, v in enumerate(vs)},
+                                      {str(i): t for i, t in enumerate(taus)})
+        assert ops.launch_counts()["threshold_select"] == -(-len(vs) // 64)
+        for i, (v, t) in enumerate(zip(vs, taus)):
+            want_q, want_r = ref.topk_threshold_select(v, t)
+            assert torch.equal(q[str(i)], want_q)
+            assert torch.equal(r[str(i)], want_r)
+            if v.is_contiguous():
+                one_q, one_r = CP.threshold_select(v, t)
+                assert torch.equal(one_q, want_q) and torch.equal(one_r, want_r)
+    torch.cuda.synchronize()
+
+
+def kd_close(got, want):
+    """NaN and ±inf where the other has them, finite entries within the
+    reference's bar (atol 1e-5, rtol 1e-4)."""
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        assert torch.equal(a.isnan(), b.isnan())
+        inf = b.isinf()
+        assert torch.equal(a[inf], b[inf])
+        fin = torch.isfinite(b)
+        torch.testing.assert_close(a[fin], b[fin], atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kd_forward_at_route_boundaries(dtype):
+    """The one-read KD forward at each route's boundary, G > 1: the
+    register route's cap and one more (a cluster of one CTA), the largest C
+    one CTA stages and one more (a cluster of two), against the plain
+    version within the reference's bar, the backward on its statistics
+    within 1e-5 of the gradient's largest magnitude.  Then rows with a label
+    out of range (NaN loss, CE, KL, true mass and S) and ±inf logits, one
+    of them -inf on a whole lane's or the first CTA's classes: NaN and inf
+    where the plain version has them (its one-hot product gives CE NaN
+    where a student logit is infinite; there CE = lse_s - s_y)."""
+    need_card()
+    g = torch.Generator().manual_seed(14)
+    esize = torch.empty((), dtype=dtype).element_size()
+    single = KD.SLICE_BYTES // (2 * esize)
+    for rows, C, groups in ((64, KD.WARP_MAX_C, 4), (64, KD.WARP_MAX_C + 1, 4),
+                            (16, single, 2), (16, single + 1, 2)):
+        s, t = ((2 * torch.randn(rows, C, generator=g)).to("cuda", dtype)
+                for _ in range(2))
+        y = torch.randint(0, C, (rows,), generator=g).cuda()
+        rho = torch.rand(groups, C, generator=g).cuda()
+        rho[:, 0] = 1.0
+        got = KD.kd_loss(s, t, y, rho, 0.35, 2.0)
+        kd_close(got, ref.kd_loss(s, t, y, rho, 0.35, 2.0))
+        up = torch.rand(rows, generator=g).cuda()
+        ds = KD.kd_loss_bwd(s, t, y, rho, got[3], up, 0.35, 2.0)
+        ds_plain = ref.kd_loss_bwd(s, t, y, rho, got[3], up, 0.35, 2.0)
+        err = (ds.float() - ds_plain.float()).abs().max()
+        assert err <= 1e-5 * ds_plain.float().abs().max()
+    for C in (10, KD.WARP_MAX_C, KD.WARP_MAX_C + 1, single + 1):
+        s, t = ((2 * torch.randn(8, C, generator=g)).to("cuda", dtype)
+                for _ in range(2))
+        y = torch.randint(0, C, (8,), generator=g).cuda()
+        rho = torch.rand(2, C, generator=g).cuda()
+        j = torch.arange(C, device="cuda")
+        cl, slice_, _ = KD.cluster_plan(C, esize)
+        dead = (j < C // 2 if C <= 32 else j % 32 < 16 if C <= KD.WARP_MAX_C
+                else j < (slice_ if cl > 1 else C // 2))
+        y[0], y[2], y[3], y[4] = C, 0, C - 1, C - 1
+        t[1, dead] = float("-inf")
+        t[2, 3], t[2, 5] = float("inf"), float("-inf")
+        s[3, dead] = float("-inf")
+        s[4, 1] = float("inf")
+        got = KD.kd_loss(s, t, y, rho, 0.35, 1.0)
+        want = [w.clone() for w in ref.kd_loss(s, t, y, rho, 0.35, 1.0)]
+        for r in (3, 4):
+            want[1][r] = want[3][r, 0] - s[r, y[r]].float()
+            want[0][r] = 0.65 * want[1][r] + 0.35 * want[2][r]
+        for w in want[:3]:
+            w[0] = float("nan")
+        want[3][0, 3:] = float("nan")
+        kd_close(got, want)
     torch.cuda.synchronize()
