@@ -270,6 +270,7 @@ def device_ms_by_kernel(torch, fn, iters=20):
 KD_SHAPES = [(512, 10, 8), (512, 100, 8), (31, 257, 1), (64, 37, 1),
              (1024, 32768, 1)]
 KD_LAM, KD_TAU = 0.35, 1.0
+KD_TAU_GENERAL = 3.0   # the backward's route for tau != 1 (not a power of 2)
 # the Table I baselines of phase 5, and the benchmark's eta for them
 BASELINES = ("moon", "fedgkd", "fedntd", "fedrs")
 TABLE1_ETA = 0.05
@@ -327,15 +328,17 @@ def kd_bound(kernel, rows, n_classes, groups, elem_bytes=4):
     """(bound_ms, bound_by) of one KD kernel call: each input read once and
     each output written once, against the HBM rate; operations counted from
     the source per element (forward: 3 exps, 1 log, 4 divides and about 20
-    adds, multiplies and compares; backward: 3 exps, 2 divides and about 12
-    more), against the fp32 rate."""
+    adds, multiplies and compares; backward on the route KD_TAU takes, at
+    τ = 1 2 exps and about 12 more, else 3 exps, 2 scalings by 1/τ and the
+    same 12), against the fp32 rate."""
     n = rows * n_classes
     common = 2 * elem_bytes * n + 8 * rows + 4 * groups * n_classes
     nbytes, flops = {
         # + loss, ce, kl and 5 statistics a row
         "kd_loss": (common + 4 * 8 * rows, 28 * n),
         # + statistics and upstream gradient read, ds written
-        "kd_loss_bwd": (common + 4 * 6 * rows + elem_bytes * n, 17 * n),
+        "kd_loss_bwd": (common + 4 * 6 * rows + elem_bytes * n,
+                        (14 if KD_TAU == 1.0 else 17) * n),
     }[kernel]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -521,20 +524,68 @@ def select_yardsticks(torch, CP, shapes, gen, iters=30):
 
 
 def kd_yardsticks(torch, KD, gen, iters=30):
-    """{label: ms} of the KD forward (wall by CUDA events over `iters`
-    calls, and device ms by kernel) at the FedADC+ CNN's folded (512, 10)
-    with 8 groups of ρ, in fp32, and an LM vocabulary's (1024, 32768) in
-    fp32 and bf16."""
+    """{label: ms} of the KD forward and backward (wall by CUDA events over
+    `iters` calls, and device ms by kernel) at the FedADC+ CNN's folded
+    (512, 10) with 8 groups of ρ in fp32 (there also the host time of the
+    call), an LM vocabulary's (1024, 32768) in fp32 and bf16, and 8 rows of
+    it in fp32; then one vmapped grad_and_value of self_confidence_kd_loss
+    over K=8 clients of 64 rows of 10 classes, phase 5's Function path
+    (the vmap rules' folds and checks around both kernels): wall over 200
+    calls, host time and device ms by kernel."""
+    from repro_torch.core import distillation as D
     out = {}
     for rows, n_classes, groups, dtype in (
             (512, 10, 8, torch.float32), (1024, 32768, 1, torch.float32),
-            (1024, 32768, 1, torch.bfloat16)):
-        s_, t_, y_, rho_, _ = kd_operands(torch, rows, n_classes, groups,
-                                          dtype, gen)
-        call = lambda: KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
-        tag = f"kd_loss ({rows}, {n_classes}) G={groups} {dtype}"
-        out[tag] = cuda_ms(torch, call, iters=iters)
-        out[f"{tag}, device ms by kernel"] = device_ms_by_kernel(torch, call)
+            (1024, 32768, 1, torch.bfloat16), (8, 32768, 1, torch.float32)):
+        s_, t_, y_, rho_, g_ = kd_operands(torch, rows, n_classes, groups,
+                                           dtype, gen)
+        stats_ = KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)[3]
+        calls = {"kd_loss": lambda: KD.kd_loss(s_, t_, y_, rho_, KD_LAM,
+                                               KD_TAU),
+                 "kd_loss_bwd": lambda: KD.kd_loss_bwd(
+                     s_, t_, y_, rho_, stats_, g_, KD_LAM, KD_TAU)}
+        for name, call in calls.items():
+            tag = f"{name} ({rows}, {n_classes}) G={groups} {dtype}"
+            out[tag] = cuda_ms(torch, call, iters=iters)
+            out[f"{tag}, device ms by kernel"] = device_ms_by_kernel(torch,
+                                                                     call)
+            if n_classes == 10:
+                out[f"{tag}, host"] = host_ms(call)
+        if n_classes == 10:
+            # host steps of the backward's call and vmap rule, each alone:
+            # the operand checks, and the fold of its six operands (the
+            # folded client axis of K=8 clients of 64 rows) or of g alone
+            dev = s_.get_device()
+            out["host: check_operands of stats and g"] = host_ms(
+                lambda: (KD.check_operands("kd_loss_bwd", stats_,
+                                           dtype=torch.float32,
+                                           shape=stats_.shape, device=dev),
+                         KD.check_operands("kd_loss_bwd", g_,
+                                           dtype=torch.float32,
+                                           shape=g_.shape, device=dev)))
+            out["host: _check of s, t, labels, rho"] = host_ms(
+                lambda: KD._check("kd_loss_bwd", s_, t_, y_, rho_))
+            six = (s_.view(8, -1, n_classes), t_.view(8, -1, n_classes),
+                   y_.view(8, -1), rho_.view(8, 1, n_classes),
+                   stats_.view(8, -1, stats_.shape[1]), g_.view(8, -1))
+            out["host: _fold of the six backward operands"] = host_ms(
+                lambda: KD._fold(8, (0,) * 6, six))
+            out["host: _fold of g alone"] = host_ms(
+                lambda: KD._fold(8, (0,), six[5:]))
+    k, b, n_classes = 8, 64, 10
+    s_, t_ = (torch.randn(k, b, n_classes, generator=gen).cuda()
+              for _ in range(2))
+    y_ = torch.randint(0, n_classes, (k, b), generator=gen).cuda()
+    counts = torch.randint(0, 50, (k, n_classes), generator=gen).cuda()
+    step = torch.func.vmap(torch.func.grad_and_value(
+        lambda s, t, y, c: D.self_confidence_kd_loss(s, t, y, c, KD_LAM,
+                                                     KD_TAU)[0]))
+    call = lambda: step(s_, t_, y_, counts)
+    tag = f"vmapped grad_and_value of self_confidence_kd_loss K={k} x {b} x "
+    tag += f"{n_classes} fp32"
+    out[tag] = cuda_ms(torch, call, iters=200)
+    out[f"{tag}, host"] = host_ms(call)
+    out[f"{tag}, device ms by kernel"] = device_ms_by_kernel(torch, call)
     return out
 
 
@@ -635,7 +686,7 @@ def kernel_times(torch, gen):
     QSGD's qsgd_yardsticks over the CNN's 16 leaves and ResNet-18's largest
     leaf, the update sweeps' update_yardsticks and the threshold select's
     select_yardsticks over the CNN's 16 leaves, ResNet-18's 76 and its
-    largest leaf, and the KD forward's kd_yardsticks."""
+    largest leaf, and the KD pair's kd_yardsticks."""
     from repro_torch.kernels import compress as CP
     from repro_torch.kernels import fedadc_update as FU
     from repro_torch.kernels import kd_loss as KD
@@ -976,25 +1027,59 @@ def kd_edge_shapes(KD, esize):
     """(rows, classes, groups of ρ) at each route's boundary of the KD
     forward: the register route's cap and one more (the first cluster
     route shape), the largest C one CTA stages and one more (a cluster of
-    two), for logits of `esize` bytes."""
+    two), for logits of `esize` bytes; and at the backward's: C one under
+    and one over its tile (whole rows a tile; two chunks a row), 3 classes
+    (rows off a 16-byte boundary, many a tile) and an LM vocabulary over 8
+    rows (256 tiles)."""
     single = KD.SLICE_BYTES // (2 * esize)
     assert KD.cluster_plan(single, esize)[0] == 1
     assert KD.cluster_plan(single + 1, esize)[0] == 2
+    tile = KD.BWD_TILE
+    assert not KD.bwd_plan(64, tile - 1)[2] and KD.bwd_plan(64, tile + 1)[2]
     return [(64, KD.WARP_MAX_C, 4), (64, KD.WARP_MAX_C + 1, 4),
-            (16, single, 2), (16, single + 1, 2)]
+            (16, single, 2), (16, single + 1, 2), (64, tile - 1, 4),
+            (64, tile + 1, 4), (300, 3, 3), (8, 32768, 1)]
+
+
+def bwd_excess(torch, ds, want):
+    """The backward's error against its plain version: inf unless NaN and
+    ±inf sit where the plain version has them, else max |kernel - plain|
+    over the finite entries as a share of their largest magnitude."""
+    a, b = ds.float(), want.float()
+    fin = torch.isfinite(b)
+    if not (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a[~fin & ~b.isnan()], b[~fin & ~b.isnan()])):
+        return float("inf")
+    if not fin.any():
+        return 0.0
+    return ((a[fin] - b[fin]).abs().max() / b[fin].abs().max()).item()
+
+
+def kd_bwd_check(torch, KD, ref, operands, stats, tau):
+    """(max |kernel - plain|, its share of the gradient's largest magnitude
+    or inf, bit for bit?) of the KD backward on the card against
+    ref.kd_loss_bwd, both from the same statistics."""
+    s_, t_, y_, rho_, g_ = operands
+    ds = KD.kd_loss_bwd(s_, t_, y_, rho_, stats, g_, KD_LAM, tau)
+    want = ref.kd_loss_bwd(s_, t_, y_, rho_, stats, g_, KD_LAM, tau)
+    bits = torch.int16 if ds.dtype is torch.bfloat16 else torch.int32
+    return (max_err([ds], [want]), bwd_excess(torch, ds, want),
+            torch.equal(ds.view(bits), want.view(bits)))
 
 
 def kd_special_rows(torch, KD, ref, gen, n_classes, dtype):
-    """The KD forward on 8 rows (2 groups of ρ) holding a label out of
+    """The KD pair on 8 rows (2 groups of ρ) holding a label out of
     range (row 0: NaN loss, CE, KL, true mass and S, the kernel's contract),
     a teacher -inf on the classes that some lanes' registers or the first
     CTA's slice hold alone (row 1), a teacher +inf and -inf (row 2), a
     student -inf on the same classes (row 3) and a student +inf (row 4) ->
-    the largest excess of |kernel - plain| over 1e-5 + 1e-4 |plain| on the
-    finite entries, or inf where NaN or inf entries disagree.  The plain
-    version's CE gathers s_y by a one-hot product, whose 0·inf is NaN on
-    rows 3 and 4: there CE = lse_s - s_y and the loss follow from it."""
-    s_, t_, y_, rho_, _ = kd_operands(torch, 8, n_classes, 2, dtype, gen)
+    (the forward's largest excess of |kernel - plain| over 1e-5 + 1e-4
+    |plain| on the finite entries, or inf where NaN or inf entries
+    disagree; the backward's bwd_excess at τ = KD_TAU and KD_TAU_GENERAL,
+    each from the forward's statistics at that τ).  The plain version's CE
+    gathers s_y by a one-hot product, whose 0·inf is NaN on rows 3 and 4:
+    there CE = lse_s - s_y and the loss follow from it."""
+    s_, t_, y_, rho_, g_ = kd_operands(torch, 8, n_classes, 2, dtype, gen)
     j = torch.arange(n_classes, device="cuda")
     if n_classes <= 32:                  # lanes below C/2
         dead = j < n_classes // 2
@@ -1023,55 +1108,72 @@ def kd_special_rows(torch, KD, ref, gen, n_classes, dtype):
         fin = torch.isfinite(b)
         if not (torch.equal(a.isnan(), b.isnan())
                 and torch.equal(a[~fin & ~b.isnan()], b[~fin & ~b.isnan()])):
-            return float("inf")
+            worst = float("inf")
+            break
         if fin.any():
             worst = max(worst, ((a[fin] - b[fin]).abs()
                                 - 1e-4 * b[fin].abs()).max().item())
-    return worst
+    bwd = []
+    for tau in (KD_TAU, KD_TAU_GENERAL):
+        stats = (got[3] if tau == KD_TAU
+                 else KD.kd_loss(s_, t_, y_, rho_, KD_LAM, tau)[3])
+        bwd.append(kd_bwd_check(torch, KD, ref, (s_, t_, y_, rho_, g_),
+                                stats, tau)[1])
+    return worst, bwd
 
 
 def kd_kernel_checks(torch, KD, ref, gen, errs):
     """The KD forward and backward against their plain versions on the
     card in fp32 and bf16: at KD_SHAPES and each route's boundary
-    (kd_edge_shapes), forward within 1e-5 + 1e-4 |plain|, backward within
-    1e-5 of the gradient's largest magnitude (each row is reduced in
-    another order than the plain version's, so not bit for bit); then the
-    forward on rows with an out-of-range label and ±inf logits
-    (kd_special_rows) on both routes."""
+    (kd_edge_shapes), forward within 1e-5 + 1e-4 |plain|; the backward,
+    from the forward's statistics, at τ = KD_TAU (its route without the
+    third exp) and KD_TAU_GENERAL, within 1e-5 of the gradient's largest
+    magnitude (it rounds as the plain version does, so it is logged bit for
+    bit or not; each row's statistics are reduced in another order than
+    the plain version's); then both on rows with an out-of-range label and
+    ±inf logits (kd_special_rows) on every route, NaN and inf where the
+    plain version has them."""
     for dtype in (torch.float32, torch.bfloat16):
         esize = torch.empty((), dtype=dtype).element_size()
         for rows, n_classes, groups in KD_SHAPES + kd_edge_shapes(KD, esize):
-            s_, t_, y_, rho_, g_ = kd_operands(torch, rows, n_classes, groups,
-                                               dtype, gen)
+            ops_ = kd_operands(torch, rows, n_classes, groups, dtype, gen)
+            s_, t_, y_, rho_, _ = ops_
             got = KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
             want = ref.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
             e = max_err([got], [want])
             excess = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
                          for a, b in zip(got, want))
-            ds = KD.kd_loss_bwd(s_, t_, y_, rho_, got[3], g_, KD_LAM, KD_TAU)
-            ds_plain = ref.kd_loss_bwd(s_, t_, y_, rho_, got[3], g_, KD_LAM,
-                                       KD_TAU)
-            e_bwd = max_err([ds], [ds_plain])
-            rel_bwd = e_bwd / ds_plain.float().abs().max().item()
+            stats_general = KD.kd_loss(s_, t_, y_, rho_, KD_LAM,
+                                       KD_TAU_GENERAL)[3]
+            bwd = [kd_bwd_check(torch, KD, ref, ops_, got[3], KD_TAU),
+                   kd_bwd_check(torch, KD, ref, ops_, stats_general,
+                                KD_TAU_GENERAL)]
             torch.cuda.synchronize()
             log(f"check kd_loss {dtype} ({rows}, {n_classes}) G={groups}: max "
                 f"|kernel - plain| = {e} (bar 1e-5 + 1e-4 |plain|, excess "
-                f"over rtol {excess}); kd_loss_bwd max |kernel - plain| = "
-                f"{e_bwd}, {rel_bwd} of the largest (bar 1e-5)")
-            if not (excess <= 1e-5 and rel_bwd <= 1e-5):
+                f"over rtol {excess}); kd_loss_bwd tau={KD_TAU}: max |kernel "
+                f"- plain| = {bwd[0][0]}, {bwd[0][1]} of the largest (bar "
+                f"1e-5), bit for bit {bwd[0][2]}; tau={KD_TAU_GENERAL}: "
+                f"{bwd[1][0]}, {bwd[1][1]} of the largest, bit for bit "
+                f"{bwd[1][2]}")
+            if not (excess <= 1e-5 and all(b[1] <= 1e-5 for b in bwd)):
                 raise AssertionError(f"kd kernels {dtype} ({rows}, "
                                      f"{n_classes}): differ from plain")
             errs["kd_loss"] = max(errs["kd_loss"], e)
-            errs["kd_loss_bwd"] = max(errs["kd_loss_bwd"], e_bwd)
+            errs["kd_loss_bwd"] = max(errs["kd_loss_bwd"], bwd[0][0],
+                                      bwd[1][0])
         for n_classes in (10, KD.WARP_MAX_C, KD.WARP_MAX_C + 1,
-                          kd_edge_shapes(KD, esize)[-1][1], 32768):
-            excess = kd_special_rows(torch, KD, ref, gen, n_classes, dtype)
+                          kd_edge_shapes(KD, esize)[3][1], 32768):
+            excess, bwd = kd_special_rows(torch, KD, ref, gen, n_classes,
+                                          dtype)
             torch.cuda.synchronize()
             log(f"check kd_loss {dtype} C={n_classes} with an out-of-range "
                 f"label and ±inf logits: NaN and inf where the plain version "
                 f"has them, excess over 1e-5 + 1e-4 |plain| elsewhere "
-                f"{excess}")
-            if not excess <= 1e-5:
+                f"{excess}; kd_loss_bwd at tau={KD_TAU} and "
+                f"{KD_TAU_GENERAL}: NaN and inf where the plain version has "
+                f"them, share of the largest elsewhere {bwd} (bar 1e-5)")
+            if not (excess <= 1e-5 and all(b <= 1e-5 for b in bwd)):
                 raise AssertionError(f"kd_loss {dtype} C={n_classes}: special "
                                      f"rows differ from plain")
 
@@ -1759,13 +1861,16 @@ def main():
                 f"leaf, yardsticks: "
                 f"{json.dumps(update_yardsticks(torch, FU, resnet_leaf, gen))}")
     # the KD kernels at the FedADC+ CNN's folded (512, 10) (the line's
-    # numbers) and an LM vocabulary's (1024, 32768); no single PyTorch call
-    # computes this loss, so there is no library time
-    log(f"time kd_loss, yardsticks: "
+    # numbers), an LM vocabulary's (1024, 32768) in fp32 and bf16 and 8 rows
+    # of it; no single PyTorch call computes this loss, so there is no
+    # library time
+    log(f"time kd_loss and kd_loss_bwd, yardsticks: "
         f"{json.dumps(kd_yardsticks(torch, KD, gen))}")
-    for rows, n_classes, groups in (KD_SHAPES[0], KD_SHAPES[-1]):
+    for rows, n_classes, groups, dtype in (
+            (*KD_SHAPES[0], torch.float32), (*KD_SHAPES[-1], torch.float32),
+            (*KD_SHAPES[-1], torch.bfloat16), (8, 32768, 1, torch.float32)):
         s_, t_, y_, rho_, g_ = kd_operands(torch, rows, n_classes, groups,
-                                           torch.float32, gen)
+                                           dtype, gen)
         stats_ = KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)[3]
         calls = {
             "kd_loss": (
@@ -1777,13 +1882,14 @@ def main():
                 lambda: ref.kd_loss_bwd(s_, t_, y_, rho_, stats_, g_, KD_LAM,
                                         KD_TAU))}
         for name, (kern, plain) in calls.items():
-            b_ms, b_by = kd_bound(name, rows, n_classes, groups)
+            b_ms, b_by = kd_bound(name, rows, n_classes, groups,
+                                  elem_bytes=s_.element_size())
             rec = {"ms": cuda_ms(torch, kern),
                    "plain_ms": cuda_ms(torch, plain), "library_ms": None,
                    "bound_ms": b_ms, "bound_by": b_by}
-            log(f"time {name} ({rows}, {n_classes}) G={groups} fp32: "
+            log(f"time {name} ({rows}, {n_classes}) G={groups} {dtype}: "
                 f"{json.dumps(rec)}")
-            if rows == KD_SHAPES[0][0] and n_classes == KD_SHAPES[0][1]:
+            if (rows, n_classes, dtype) == (*KD_SHAPES[0][:2], torch.float32):
                 timed[name] = rec
     del s_, t_, y_, rho_, g_, stats_
     timed.update(lm_kernel_times(torch, FA, SSD, ref, gen))

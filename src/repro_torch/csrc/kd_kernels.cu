@@ -15,7 +15,7 @@
 //       backward, so fedadc_kd_loss_bwd has no TPU counterpart
 //   fedadc_kd_loss_bwd   ds_j = g_i * [(1 - lam) * (softmax(s)_j - 1[j = y])
 //                                      + lam * tau * (S * softmax(s / tau)_j - tgt_j)]
-//     from the forward's statistics, one pass over the row.
+//     from the forward's statistics, one elementwise pass.
 //
 // Bound: bytes. The forward reads s and t (B x C each) once from device
 // memory, labels (B), rho (G x C), and writes 8 floats a row. At the main
@@ -23,7 +23,16 @@
 // the launch, not the bytes, sets its time. At (1024, 32768) it is 268 MB,
 // some 80 us, and its per-element work (three exps, a log, about twenty
 // adds, multiplies and compares) is of the same order on the CUDA cores.
-// The backward reads s, t and the statistics and writes ds.
+// The backward reads s, t, rho and the statistics and writes ds: at
+// (1024, 32768) in fp32 402 MB, some 120 us, against two exps (tau = 1) or
+// three and two divides and about a dozen other operations an element.
+//
+// Design of the backward: each element is one term of closed form, so a
+// CTA takes a tile of the flattened logits (a row's chunk, or whole short
+// rows), wherever the rows end: every shape fills the card. s and t come
+// as 16-byte words with streaming hints, ds goes out the same way, and each
+// row's values are read once a tile. At tau = 1 p stands for softmax(s /
+// tau) on every row whose lse_st is its lse_s bit for bit (one exp fewer).
 //
 // Design of the forward: each row is read from device memory once. The
 // reductions it needs come in two steps: the three log-sum-exps (of s,
@@ -54,7 +63,7 @@
 // Inputs fp32 or bf16 (s and t the same type), labels int64 in [0, C),
 // rho and statistics fp32, accumulation fp32; ds is written in the logits'
 // type. Exact expf/logf, no fast-math intrinsics; the forward scales by
-// 1/tau (exact for tau a power of two) where the plain version divides.
+// 1/tau (exact for tau a power of two), the backward divides by tau.
 // A label outside [0, C) gives NaN in that row; +-inf logits give the
 // log-sum-exps torch.logsumexp gives. Each entry point launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
@@ -65,7 +74,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
+#include "leaf_table.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -421,56 +433,221 @@ kd_fwd_cluster_kernel(const T* __restrict__ s, const T* __restrict__ t,
   cluster.sync();   // no CTA leaves while rank 0 reads its shared memory
 }
 
-// The row this thread works on and its index within the row (backward).
-template <int kRowThreads>
-__device__ __forceinline__ void row_of(int64_t& row, int& tid) {
-  if (kRowThreads == 32) {
-    row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-    tid = threadIdx.x & 31;
-  } else {
-    row = blockIdx.x;
-    tid = threadIdx.x;
-  }
+// -- the backward: one elementwise pass over tiles of the flattened logits --
+//
+// ds_j needs only its own s_j, t_j and rho_j and five statistics of its row,
+// so no reduction ties a row to a CTA: a CTA takes a tile of at most
+// kBwdTile elements of the flattened (rows x C) logits.  C > kBwdTile: a
+// tile is one row's chunk of kBwdTile classes (the last shorter), so 8 rows
+// of 32768 classes make 256 CTAs; C <= kBwdTile: a tile is
+// min(kBwdTile / C, kBwdMaxRows) whole rows, so at C = 10 no lane is idle.
+
+// A row's share of the backward: the forward's statistics, the clipped
+// true-class target, the upstream gradient, and the label (-1 when out of
+// range: no class matches it, and S is NaN there).
+struct __align__(16) BwdRow {
+  float lse_s, lse_st, lse_t, tgt_y, tsum, g;
+  int y;
+};
+
+__device__ __forceinline__ BwdRow bwd_row(const float* __restrict__ stats,
+                                          const int64_t* __restrict__ labels,
+                                          const float* __restrict__ g,
+                                          int64_t row, int64_t C) {
+  const float* st = stats + row * kStats;
+  const int64_t y = labels[row];
+  BwdRow r;
+  r.lse_s = st[0];
+  r.lse_st = st[1];
+  r.lse_t = st[2];
+  r.tgt_y = clip_target(st[3]);
+  r.tsum = st[4];
+  r.g = g[row];
+  r.y = y >= 0 && y < C ? (int)y : -1;
+  return r;
 }
 
-template <typename T, int kRowThreads>
-__global__ void __launch_bounds__(kBlock)
+// The weights of the two terms, w_ce = 1 - lam and w_kd = lam tau, and
+// 1 / tau, each rounded once to fp32 from the caller's double, as torch
+// rounds a number that scales or divides a tensor on the card.
+struct BwdScale {
+  float w_ce, w_kd, inv_tau;
+};
+
+// ds of one element, rounded step by step as ref.kd_loss_bwd's torch ops
+// round on the card (no FMA: __fmul_rn and __fadd_rn are never
+// contracted; t / tau is t * fp32(1 / tau), as torch divides a tensor by a
+// number), so a ds rounded to bf16 rounds where the plain version's does.
+// p_tau is p itself on a row whose lse_st equals its lse_s bit for bit: at
+// 1 / tau = 1 s / tau is s, and both forwards (the kernel's and
+// ref.kd_loss) then give lse_st == lse_s.
+template <bool kUnitTau, bool kShared>
+__device__ __forceinline__ float bwd_elem(float sj, float tj, float rho_j,
+                                          bool is_y, const BwdRow& r,
+                                          const BwdScale& w) {
+  const float p = expf(sj - r.lse_s);
+  float p_tau, pt;
+  if (kUnitTau) {
+    p_tau = kShared ? p : expf(sj - r.lse_st);
+    pt = expf(tj - r.lse_t);
+  } else {
+    p_tau = expf(__fmul_rn(sj, w.inv_tau) - r.lse_st);
+    pt = expf(__fmul_rn(tj, w.inv_tau) - r.lse_t);
+  }
+  const float tgt =
+      is_y ? r.tgt_y : clip_target(__fmul_rn(1.0f - rho_j, pt));
+  const float ce = __fmul_rn(w.w_ce, p - (is_y ? 1.0f : 0.0f));
+  const float kd = __fmul_rn(w.w_kd, __fmul_rn(r.tsum, p_tau) - tgt);
+  return __fmul_rn(r.g, __fadd_rn(ce, kd));
+}
+
+constexpr int kBwdTile = 1024;     // elements a tile at most
+constexpr int kBwdWords = 2;       // 16-byte words of s (and of t) a thread
+constexpr int kBwdMaxRows = 256;   // whole rows a tile at most (C <= kBwdTile)
+template <typename T>
+constexpr int kBwdThreads = kBwdTile / (kBwdWords * (16 / (int)sizeof(T)));
+
+// One tile.  kWide: row `tile / per_tile`, its chunk `tile % per_tile`, the
+// row's values in registers.  Else rows [tile per_tile, ...), their values
+// staged in shared memory once a row; element k of the tile is in tile row
+// k / C, found as __umulhi(k, magic) with magic = ceil(2^32 / C) (exact for
+// k C < 2^32; magic 0 is C = 1).  Where s, t and ds share their offset from
+// a 16-byte boundary, the tile's body goes as 16-byte words with streaming
+// hints (each byte is touched once), kBwdWords a thread, all in flight
+// before the rows' values load; the head before the first boundary and
+// the tail after the last word go one element a thread.  Otherwise every
+// element goes alone.  rho (G x C, re-read by every row of its group)
+// comes through the read-only path.  kUnitTau (1 / tau == 1): p for p_tau
+// where the tile's every row has lse_st == lse_s, and no scaling by 1 / tau.
+template <typename T, bool kWide, bool kUnitTau>
+__global__ void __launch_bounds__(kBwdThreads<T>)
 kd_bwd_kernel(const T* __restrict__ s, const T* __restrict__ t,
               const int64_t* __restrict__ labels,
               const float* __restrict__ rho, const float* __restrict__ stats,
               const float* __restrict__ g, T* __restrict__ ds, int64_t rows,
-              int64_t C, int64_t rows_per_group, float lam, float tau) {
-  int64_t row;
-  int tid;
-  row_of<kRowThreads>(row, tid);
-  if (row >= rows) return;
-  const T* s_row = s + row * C;
-  const T* t_row = t + row * C;
-  const float* rho_row = rho + (row / rows_per_group) * C;
-  const float* st = stats + row * kStats;
-  const float lse_s = st[0], lse_st = st[1], lse_t = st[2];
-  const float tgt_y = clip(st[3]), tsum = st[4];
-  const int64_t y = labels[row];
-  const float gi = g[row];
-  const float a = gi * (1.0f - lam), b = gi * lam * tau;
-  for (int64_t j = tid; j < C; j += kRowThreads) {
-    const float sj = load(s_row, j);
-    const float p = expf(sj - lse_s);
-    const float p_tau = expf(sj / tau - lse_st);
-    float tgt, hot;
-    if (j == y) {
-      tgt = tgt_y;
-      hot = 1.0f;
-    } else {
-      tgt = clip((1.0f - rho_row[j]) * expf(load(t_row, j) / tau - lse_t));
-      hot = 0.0f;
-    }
-    store(ds, row * C + j, a * (p - hot) + b * (tsum * p_tau - tgt));
+              int64_t C, int64_t rows_per_group, int64_t per_tile,
+              uint32_t magic, BwdScale w) {
+  using V = leaf_table::Vec16<T>;
+  constexpr int kThreads = kBwdThreads<T>;
+  __shared__ BwdRow srow[kWide ? 1 : kBwdMaxRows];
+  __shared__ const float* srho[kWide ? 1 : kBwdMaxRows];
+  const int64_t tile = blockIdx.x;
+  int64_t row = 0, lo, j0 = 0;   // kWide: the row; else the tile's first
+  int n, nr = 0;
+  if constexpr (kWide) {
+    row = tile / per_tile;
+    j0 = (tile - row * per_tile) * kBwdTile;
+    n = (int)min(C - j0, (int64_t)kBwdTile);
+    lo = row * C + j0;
+  } else {
+    row = tile * per_tile;
+    nr = (int)min(per_tile, rows - row);
+    n = nr * (int)C;
+    lo = row * C;
   }
+  const T* sp = s + lo;
+  const T* tp = t + lo;
+  T* dp = ds + lo;
+  const uintptr_t at = (uintptr_t)sp & 15;
+  const bool together =
+      at == ((uintptr_t)tp & 15) && at == ((uintptr_t)dp & 15);
+  const int head =
+      together ? min(n, (int)((16 - at) & 15) / (int)sizeof(T)) : n;
+  const int words = (n - head) / V::kN;
+  const int tail = head + words * V::kN;
+  uint4 sw[kBwdWords], tw[kBwdWords];
+#pragma unroll
+  for (int u = 0; u < kBwdWords; ++u) {
+    const int wd = u * kThreads + threadIdx.x;
+    if (wd < words) {
+      sw[u] = __ldcs(reinterpret_cast<const uint4*>(sp + head) + wd);
+      tw[u] = __ldcs(reinterpret_cast<const uint4*>(tp + head) + wd);
+    }
+  }
+
+  BwdRow r{};
+  const float* rho_row = rho;
+  bool share;
+  if constexpr (kWide) {
+    r = bwd_row(stats, labels, g, row, C);
+    rho_row = rho + (row / rows_per_group) * C;
+    share = __float_as_uint(r.lse_st) == __float_as_uint(r.lse_s);
+  } else {
+    bool mine = true;
+    for (int i = threadIdx.x; i < nr; i += kThreads) {
+      const BwdRow ri = bwd_row(stats, labels, g, row + i, C);
+      srow[i] = ri;
+      srho[i] = rho + ((row + i) / rows_per_group) * C;
+      mine &= __float_as_uint(ri.lse_st) == __float_as_uint(ri.lse_s);
+    }
+    share = __syncthreads_and(mine);
+  }
+  auto run = [&](auto shared_tag) {
+    constexpr bool kShared = decltype(shared_tag)::value;
+    // ds of tile element k, from its s and t
+    auto elem = [&](int k, float sj, float tj) -> float {
+      if constexpr (kWide) {
+        const int64_t j = j0 + k;
+        return bwd_elem<kUnitTau, kShared>(sj, tj, __ldg(rho_row + j),
+                                           j == r.y, r, w);
+      } else {
+        const uint32_t q = magic ? __umulhi((uint32_t)k, magic) : (uint32_t)k;
+        const int j = k - (int)q * (int)C;
+        const BwdRow& rq = srow[q];
+        return bwd_elem<kUnitTau, kShared>(sj, tj, __ldg(srho[q] + j),
+                                           j == rq.y, rq, w);
+      }
+    };
+    for (int k = threadIdx.x; k < head; k += kThreads)
+      store(dp, k, elem(k, load(sp, k), load(tp, k)));
+    for (int k = tail + threadIdx.x; k < n; k += kThreads)
+      store(dp, k, elem(k, load(sp, k), load(tp, k)));
+#pragma unroll
+    for (int u = 0; u < kBwdWords; ++u) {
+      const int wd = u * kThreads + threadIdx.x;
+      if (wd < words) {
+        float x[V::kN], z[V::kN];
+        V::unpack(sw[u], x);
+        V::unpack(tw[u], z);
+        const int k0 = head + wd * V::kN;
+#pragma unroll
+        for (int e = 0; e < V::kN; ++e) x[e] = elem(k0 + e, x[e], z[e]);
+        __stcs(reinterpret_cast<uint4*>(dp + head) + wd, V::pack(x));
+      }
+    }
+  };
+  if (kUnitTau && share)
+    run(std::true_type{});
+  else
+    run(std::false_type{});
 }
 
-inline unsigned grid_for(int64_t rows, int64_t C) {
-  return (unsigned)(C <= kWarpRowMaxC ? (rows + kWarps - 1) / kWarps : rows);
+// The backward's tile plan (kd_loss.py's bwd_plan mirrors it): C >
+// kBwdTile, per_tile chunks a row and rows x per_tile tiles; else per_tile
+// rows a tile.  The grid is one tile a CTA on blockIdx.x (up to 2^31 - 1).
+template <typename T>
+int launch_bwd(const void* s, const void* t, const void* labels,
+               const void* rho, const void* stats, const void* g, void* ds,
+               int64_t rows, int64_t C, int64_t rpg, float w_ce, float w_kd,
+               float inv_tau, cudaStream_t st) {
+  const bool wide = C > kBwdTile;
+  const int64_t per_tile =
+      wide ? (C + kBwdTile - 1) / kBwdTile
+           : (kBwdTile / C < kBwdMaxRows ? kBwdTile / C : kBwdMaxRows);
+  const int64_t tiles =
+      wide ? rows * per_tile : (rows + per_tile - 1) / per_tile;
+  if (C > INT32_MAX || tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const uint32_t magic = (uint32_t)(((1ull << 32) + C - 1) / C);   // C = 1: 0
+  const bool unit = inv_tau == 1.0f;
+  auto kernel = wide ? (unit ? kd_bwd_kernel<T, true, true>
+                             : kd_bwd_kernel<T, true, false>)
+                     : (unit ? kd_bwd_kernel<T, false, true>
+                             : kd_bwd_kernel<T, false, false>);
+  kernel<<<(unsigned)tiles, kBwdThreads<T>, 0, st>>>(
+      (const T*)s, (const T*)t, (const int64_t*)labels, (const float*)rho,
+      (const float*)stats, (const float*)g, (T*)ds, rows, C, rpg, per_tile,
+      magic, BwdScale{w_ce, w_kd, inv_tau});
+  return (int)cudaGetLastError();
 }
 
 // The cluster route's shape for C classes of `esize` bytes: the smallest
@@ -537,17 +714,6 @@ int launch_fwd(const void* s_, const void* t_, const void* labels_,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-void launch_bwd(const void* s, const void* t, const void* labels,
-                const void* rho, const void* stats, const void* g, void* ds,
-                int64_t rows, int64_t C, int64_t rpg, float lam, float tau,
-                cudaStream_t st) {
-  auto kernel = C <= kWarpRowMaxC ? kd_bwd_kernel<T, 32> : kd_bwd_kernel<T, kBlock>;
-  kernel<<<grid_for(rows, C), kBlock, 0, st>>>(
-      (const T*)s, (const T*)t, (const int64_t*)labels, (const float*)rho,
-      (const float*)stats, (const float*)g, (T*)ds, rows, C, rpg, lam, tau);
-}
-
 }  // namespace
 
 extern "C" {
@@ -571,20 +737,20 @@ int fedadc_kd_loss_fwd(const void* s, const void* t, const void* labels,
 int fedadc_kd_loss_bwd(const void* s, const void* t, const void* labels,
                        const void* rho, const void* stats, const void* g,
                        void* ds, int64_t rows, int64_t C,
-                       int64_t rows_per_group, float lam, float tau,
-                       int dtype, void* stream) {
+                       int64_t rows_per_group, float w_ce, float w_kd,
+                       float inv_tau, int64_t tile, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (rows_per_group < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == kF32) {
-    launch_bwd<float>(s, t, labels, rho, stats, g, ds, rows, C,
-                      rows_per_group, lam, tau, st);
-  } else if (dtype == kBF16) {
-    launch_bwd<__nv_bfloat16>(s, t, labels, rho, stats, g, ds, rows, C,
-                              rows_per_group, lam, tau, st);
-  } else {
+  // `tile` is the wrapper's mirror of kBwdTile: a plan it tests must be ours
+  if (rows_per_group < 1 || C < 1 || tile != kBwdTile)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == kF32)
+    return launch_bwd<float>(s, t, labels, rho, stats, g, ds, rows, C,
+                             rows_per_group, w_ce, w_kd, inv_tau, st);
+  if (dtype == kBF16)
+    return launch_bwd<__nv_bfloat16>(s, t, labels, rho, stats, g, ds, rows,
+                                     C, rows_per_group, w_ce, w_kd, inv_tau,
+                                     st);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* fedadc_error_string(int code) {

@@ -53,7 +53,7 @@ SIGNATURES = {
         "fedadc_kd_loss_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                _I64, _F, _F, _INT, _P],
         "fedadc_kd_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                               _F, _F, _INT, _P],
+                               _F, _F, _F, _I64, _INT, _P],
     },
     SOURCES[3]: {
         "fedadc_flash_attention": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,

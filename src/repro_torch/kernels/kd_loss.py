@@ -14,12 +14,15 @@ takes every client's gradient at once under ``torch.func.vmap``, and a
 ctypes kernel cannot read a batched tensor's storage.  So both Functions
 below carry a ``vmap`` rule that folds the vmapped client axis into the
 row axis — K clients of b rows become K·b rows, their ρ K groups — and
-launches once for all clients.
+launches once for all clients; the backward's rule takes the rows that
+the forward's folded.
 
 The forward reads each row of s and t from device memory once: a warp a
 row with the row in registers up to ``WARP_MAX_C`` classes, above that a
 thread-block cluster a row with the row staged in shared memory
-(``cluster_plan``), up to ``max_classes``.
+(``cluster_plan``), up to ``max_classes``.  The backward is one elementwise
+pass over tiles of the flattened logits (``bwd_plan``): a row's chunk of
+``BWD_TILE`` classes, or whole rows where C is at most that.
 
 Each kernel wrapper checks its operands and raises on what the kernel does
 not take, allocates its outputs with ``torch.empty`` (the forward's four in
@@ -32,6 +35,7 @@ the path.
 from __future__ import annotations
 
 import torch
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.fedadc_update import DTYPE_CODE, check_operands, stream
@@ -41,6 +45,8 @@ WARP_MAX_C = 1024        # kWarpRowMaxC in csrc/kd_kernels.cu: registers
 SLICE_BYTES = 65536      # kSliceBytes: s and t of a cluster CTA's slice
 MAX_CLUSTER = 8          # kMaxCluster
 MAX_DYN_SMEM = 232448 - 1024   # kMaxDynSmem
+BWD_TILE = 1024          # kBwdTile: elements of a backward tile at most
+BWD_MAX_ROWS = 256       # kBwdMaxRows: whole rows of a backward tile
 
 
 def cluster_plan(n_classes: int, esize: int):
@@ -61,11 +67,23 @@ def max_classes(esize: int) -> int:
     return MAX_CLUSTER * slice_
 
 
-def _check(name, s, t, labels, rho):
-    """Check the operands both kernels share -> (rows, C, rows per group).
-    One test of everything the kernels need; only a failure re-derives
-    which operand is at fault."""
-    if (s.is_cuda and s.dtype in DTYPE_CODE and s.dim() == 2
+def bwd_plan(rows: int, n_classes: int):
+    """The backward's tiles, as ``launch_bwd`` in the .cu plans them ->
+    (tiles, per_tile, wide): for C > BWD_TILE (wide) per_tile chunks of
+    BWD_TILE classes a row, tile b the chunk b % per_tile of row b //
+    per_tile; else per_tile whole rows a tile, tile b rows [b·per_tile,
+    (b + 1)·per_tile)."""
+    if n_classes > BWD_TILE:
+        per = -(-n_classes // BWD_TILE)
+        return rows * per, per, True
+    per = min(BWD_TILE // n_classes, BWD_MAX_ROWS)
+    return -(-rows // per), per, False
+
+
+def _fits(s, t, labels, rho):
+    """Whether the operands both kernels share are what they take: one
+    test of all of them."""
+    return (s.is_cuda and s.dtype in DTYPE_CODE and s.dim() == 2
             and s.shape[1] > 0 and t.dtype is s.dtype and t.shape == s.shape
             and t.device == s.device and s.is_contiguous()
             and t.is_contiguous() and labels.device == s.device
@@ -73,7 +91,13 @@ def _check(name, s, t, labels, rho):
             and labels.is_contiguous() and rho.device == s.device
             and rho.dtype is torch.float32 and rho.dim() == 2
             and rho.shape[1] == s.shape[1] and rho.shape[0] > 0
-            and rho.is_contiguous() and s.shape[0] % rho.shape[0] == 0):
+            and rho.is_contiguous() and s.shape[0] % rho.shape[0] == 0)
+
+
+def _check(name, s, t, labels, rho):
+    """Check the operands both kernels share -> (rows, C, rows per group).
+    Only a failure of ``_fits`` re-derives which operand is at fault."""
+    if _fits(s, t, labels, rho):
         return s.shape[0], s.shape[1], max(s.shape[0] // rho.shape[0], 1)
     check_operands(name, s, t)
     if s.dim() != 2 or s.shape[1] == 0:
@@ -125,18 +149,27 @@ def kd_loss_bwd(s: torch.Tensor, t: torch.Tensor, labels: torch.Tensor,
                 rho: torch.Tensor, stats: torch.Tensor, g: torch.Tensor,
                 lam: float, tau: float) -> torch.Tensor:
     """∂(Σ_i g_i·loss_i)/∂s from the forward's ``stats`` (B, 5) and the
-    rows' upstream gradient g (B,) fp32 -> (B, C) in the logits' dtype."""
-    rows, n_classes, rpg = _check("kd_loss_bwd", s, t, labels, rho)
-    check_operands("kd_loss_bwd", stats, dtype=torch.float32,
-                   shape=(rows, N_STATS), device=s.get_device())
-    check_operands("kd_loss_bwd", g, dtype=torch.float32, shape=(rows,),
-                   device=s.get_device())
+    rows' upstream gradient g (B,) fp32 -> (B, C) in the logits' dtype,
+    each element rounded as ``ref.kd_loss_bwd`` rounds it on the card."""
+    if not (_fits(s, t, labels, rho) and stats.device == s.device
+            and stats.dtype is torch.float32
+            and stats.shape == (s.shape[0], N_STATS)
+            and stats.is_contiguous() and g.device == s.device
+            and g.dtype is torch.float32 and g.shape == labels.shape
+            and g.is_contiguous()):
+        rows = _check("kd_loss_bwd", s, t, labels, rho)[0]
+        check_operands("kd_loss_bwd", stats, dtype=torch.float32,
+                       shape=(rows, N_STATS), device=s.get_device())
+        check_operands("kd_loss_bwd", g, dtype=torch.float32, shape=(rows,),
+                       device=s.get_device())
+    rows, n_classes = s.shape
     ds = torch.empty_like(s)
     if rows:
         build.launch("fedadc_kd_loss_bwd", s.data_ptr(), t.data_ptr(),
                      labels.data_ptr(), rho.data_ptr(), stats.data_ptr(),
-                     g.data_ptr(), ds.data_ptr(), rows, n_classes, rpg, lam,
-                     tau, DTYPE_CODE[s.dtype], stream())
+                     g.data_ptr(), ds.data_ptr(), rows, n_classes,
+                     rows // rho.shape[0], 1 - lam, lam * tau, 1 / tau,
+                     BWD_TILE, DTYPE_CODE[s.dtype], stream())
         kd_loss_bwd.launches += 1
     return ds
 
@@ -171,6 +204,22 @@ def _fold(batch_size, in_dims, tensors):
     return out
 
 
+def _unrecorded(*tensors):
+    """Whether a vmap rule may run its Function's forward itself: no
+    operand is wrapped by a transform below this vmap level and the logits
+    need no autograd record.  That skips a second pass through torch.func's
+    custom-Function dispatch, the larger part of a rule's host time."""
+    return not (any(map(is_functorch_wrapped_tensor, tensors))
+                or (tensors[0].requires_grad and torch.is_grad_enabled()))
+
+
+def _operands(s, t, labels, rho):
+    """The four operands both kernels share as they take them: contiguous,
+    labels int64, ρ fp32 (each untouched where it is so)."""
+    return (_contig(s), _contig(t), _contig(labels, torch.int64),
+            _contig(rho, torch.float32))
+
+
 class KDLoss(torch.autograd.Function):
     """(s, t, labels, ρ (G, C), λ, τ) -> (loss, ce, kl, stats) per row.
     Differentiable in s through ``loss`` only; ce, kl and the statistics are
@@ -180,8 +229,7 @@ class KDLoss(torch.autograd.Function):
     def forward(s, t, labels, rho, lam, tau):
         if s.device.type == "cpu":
             return ref.kd_loss(s, t, labels, rho, lam, tau)
-        return kd_loss(_contig(s), _contig(t), _contig(labels, torch.int64),
-                       _contig(rho, torch.float32), lam, tau)
+        return kd_loss(*_operands(s, t, labels, rho), lam, tau)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -199,10 +247,17 @@ class KDLoss(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, s, t, labels, rho, lam, tau):
+        # Under vmap(grad(...)) the context that the backward reads is the
+        # grad level's: it holds the operands unfolded, so the backward's
+        # rule would fold them again.  That rule gets this rule's ``stats``
+        # back as the same object, so the folded operands ride on it.
         k = info.batch_size
-        s, t, labels, rho = _fold(k, in_dims[:4], (s, t, labels, rho))
-        out = KDLoss.apply(s, t, labels, rho, lam, tau)
-        return tuple(o.unflatten(0, (k, -1)) for o in out), (0, 0, 0, 0)
+        rows = _operands(*_fold(k, in_dims[:4], (s, t, labels, rho)))
+        out = (KDLoss.forward if _unrecorded(*rows)
+               else KDLoss.apply)(*rows, lam, tau)
+        out_k = tuple(o.unflatten(0, (k, -1)) for o in out)
+        out_k[3]._kd_rows = (*rows, out[3])
+        return out_k, (0, 0, 0, 0)
 
 
 class KDLossBackward(torch.autograd.Function):
@@ -213,9 +268,7 @@ class KDLossBackward(torch.autograd.Function):
     def forward(s, t, labels, rho, stats, g, lam, tau):
         if s.device.type == "cpu":
             return ref.kd_loss_bwd(s, t, labels, rho, stats, g, lam, tau)
-        return kd_loss_bwd(_contig(s), _contig(t),
-                           _contig(labels, torch.int64),
-                           _contig(rho, torch.float32), _contig(stats),
+        return kd_loss_bwd(*_operands(s, t, labels, rho), _contig(stats),
                            _contig(g, torch.float32), lam, tau)
 
     @staticmethod
@@ -229,6 +282,13 @@ class KDLossBackward(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, s, t, labels, rho, stats, g, lam, tau):
         k = info.batch_size
-        folded = _fold(k, in_dims[:6], (s, t, labels, rho, stats, g))
-        ds = KDLossBackward.apply(*folded, lam, tau)
+        rows = getattr(stats, "_kd_rows", None)   # KDLoss.vmap's stats
+        if rows is not None and in_dims[4] == 0:
+            rows = (*rows, *_fold(k, in_dims[5:6], (g,)))
+        else:
+            rows = _fold(k, in_dims[:6], (s, t, labels, rho, stats, g))
+        # the result has no backward, so only a wrapped operand needs apply
+        ds = (KDLossBackward.apply if any(map(is_functorch_wrapped_tensor,
+                                              rows))
+              else KDLossBackward.forward)(*rows, lam, tau)
         return ds.unflatten(0, (k, -1)), 0

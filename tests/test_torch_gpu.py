@@ -379,6 +379,71 @@ def test_kd_kernels_match_plain(dtype):
     torch.cuda.synchronize()
 
 
+def bwd_share(ds, want):
+    """The KD backward's error over its plain version's largest magnitude
+    on the finite entries, after NaN and ±inf are found where the plain
+    version has them."""
+    a, b = ds.float(), want.float()
+    assert torch.equal(a.isnan(), b.isnan())
+    inf = b.isinf()
+    assert torch.equal(a[inf], b[inf])
+    fin = torch.isfinite(b)
+    return ((a[fin] - b[fin]).abs().max() / b[fin].abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kd_backward_tiles_and_routes_match_plain(dtype):
+    """The KD backward on both of its routes, τ = 1 (p for softmax(s/τ), two
+    exps) and τ = 3 (three), against ref.kd_loss_bwd from the same
+    statistics within 1e-5 of the gradient's largest magnitude: C one under,
+    at and one over the tile (whole rows a tile, two chunks a row), rows off
+    a 16-byte boundary, 3 classes (many rows a tile), 8 rows of 32768
+    (256 tiles); s and t one element off a 16-byte boundary give the same
+    bits (every element alone); and rows with a label out of range and
+    ±inf logits, NaN and ±inf where the plain version has them."""
+    need_card()
+    g = torch.Generator().manual_seed(21)
+    W = KD.BWD_TILE
+
+    def operands(rows, C, groups):
+        s, t = ((2 * torch.randn(rows, C, generator=g)).to("cuda", dtype)
+                for _ in range(2))
+        y = torch.randint(0, C, (rows,), generator=g).cuda()
+        rho = torch.rand(groups, C, generator=g).cuda()
+        rho[:, 0] = 1.0
+        return s, t, y, rho, torch.rand(rows, generator=g).cuda()
+
+    for rows, C, groups in ((64, W - 1, 4), (64, W, 4), (64, W + 1, 4),
+                            (31, 257, 1), (300, 3, 3), (512, 10, 8),
+                            (8, 32768, 1)):
+        s, t, y, rho, up = operands(rows, C, groups)
+        for tau in (1.0, 3.0):
+            st = KD.kd_loss(s, t, y, rho, 0.35, tau)[3]
+            ds = KD.kd_loss_bwd(s, t, y, rho, st, up, 0.35, tau)
+            assert ds.dtype == dtype
+            want = ref.kd_loss_bwd(s, t, y, rho, st, up, 0.35, tau)
+            assert bwd_share(ds, want) <= 1e-5
+        off = [torch.empty(rows * C + 1, dtype=dtype, device="cuda")[1:]
+               .view(rows, C).copy_(x) for x in (s, t)]
+        assert torch.equal(KD.kd_loss_bwd(*off, y, rho, st, up, 0.35, 3.0),
+                           ds)
+    for C in (10, W + 1, 32768):
+        s, t, y, rho, up = operands(8, C, 2)
+        half = torch.arange(C, device="cuda") < C // 2
+        y[0], y[2], y[3], y[4] = C, 0, C - 1, C - 1
+        t[1, half] = float("-inf")
+        t[2, 3], t[2, 5] = float("inf"), float("-inf")
+        s[3, half] = float("-inf")
+        s[4, 1] = float("inf")
+        for tau in (1.0, 3.0):
+            st = KD.kd_loss(s, t, y, rho, 0.35, tau)[3]
+            ds = KD.kd_loss_bwd(s, t, y, rho, st, up, 0.35, tau)
+            want = ref.kd_loss_bwd(s, t, y, rho, st, up, 0.35, tau)
+            assert bwd_share(ds, want) <= 1e-5
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_fedadc_plus_rounds_on_the_card_match_the_cpu():
     """Two one-step FedADC+ rounds on the card (TF32 off) and on the CPU
