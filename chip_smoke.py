@@ -129,7 +129,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               depth of the first period (6 Mamba2 blocks and the shared
               attention), L 512, within 1e-4 of max |logit|.  Tokens of two
               routes may differ only at a near-tie (top-2 margin under the
-              logit bound), which is logged.
+              logit bound), which is logged;
+10. async   — the semi-async engine on the main path's CNN, data and
+              FedConfig (eta 0.01), a fleet of bimodal speeds (a quarter
+              4x slower), H_i in (4, 8), 5% drops, buffered-4 flushes:
+              (a) 12 flushes on the example's wire (top-k 10% with EF up,
+              the unicast delta downlink, resync horizon 2) and (b) the
+              same on the sparse wire (the flush launches sparse_reduce):
+              every launch against the count the event log predicts (the
+              dispatch groups' H_i steps, a select a group on the dense
+              wire, an aggregate and a server step a flush), uplink and
+              downlink bytes equal to the wire sizes and the unicast
+              ledger, stale deltas seen, the event log and staleness
+              histogram identical over a second run from the same seeds,
+              ms per flush and per dispatch group, a profiled flush's idle
+              share; (c) heterogeneity off, buffer_k 0: two flushes against
+              two sync rounds from the same parameters and picks, within
+              1e-4 relative; (d) the port's async straggler example;
+11. fleet   — (a) one main-path round's stacked deltas, dense and as the
+              sparse top-k wire, through protocol.aggregate: flat and one
+              region bit for bit, four regions within 1e-5 of flat, R + 1
+              weighted-reduce launches dense and R sparse-reduce calls + 1
+              sparse, each timed; (b) four sync rounds on the top-k + EF
+              wire with a FleetScheduler (R = 4) and a PagedClientStore
+              whose budget holds 8 EF pages: peak resident bytes within
+              the budget, spills and faults logged with their ms, and all
+              100 clients' pages bit for bit a plain ClientStore's fed the
+              same scatters; (c) checkpoints of the CNN's parameters, FedADC's
+              fp32 momentum and bf16, e4m3 and e5m2 copies, and paged pages
+              in those dtypes, all bit for bit.
 
 Every time is measured here, on the card named in the output.  Bounds use
 the H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s of fp32 outside the
@@ -740,37 +768,50 @@ def kernel_times_main(src):
     return 0
 
 
-def profile_round(torch, sim, round_s, tag, top=12):
-    """Profile one more round of `sim`: device time by kernel, and the idle
-    share against the median of the unprofiled rounds after the first.
-    -> the idle share, or None where the profiler saw no device time."""
-    inputs = sim.next_round_inputs()
+def profiled(torch, fn):
+    """Run ``fn()`` once under the profiler -> (its wall ms, the device
+    kernels as (name, ms, count) rows by time, their summed ms).  Only
+    device-side events count, so no time counts twice."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        sim.run_round(*inputs)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (the kernels), so no time counts twice
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    steady_ms = sorted(round_s[1:])[len(round_s[1:]) // 2] * 1e3
+    return wall_ms, rows, sum(r[1] for r in rows)
+
+
+def idle_share(tag, what, wall_ms, rows, busy_ms, steady_ms, top):
+    """Log a profiled call's device time by kernel and its idle share
+    against ``steady_ms``, the median unprofiled call -> the idle share, or
+    None where the profiler saw no device time."""
     if busy_ms > 0:
         log(f"{tag}: kernels busy {busy_ms:.3f} ms in {len(rows)} kinds; "
-            f"profiled round wall {wall_ms:.3f} ms; unprofiled median round "
-            f"{steady_ms:.3f} ms; idle share {1 - busy_ms / steady_ms:.3f} "
-            f"of the unprofiled round")
+            f"profiled {what} wall {wall_ms:.3f} ms; unprofiled median "
+            f"{what} {steady_ms:.3f} ms; idle share "
+            f"{1 - busy_ms / steady_ms:.3f} of the unprofiled {what}")
         for key, ms, count in rows[:top]:
             log(f"{tag}:   {ms:9.3f} ms  x{count:<5} {key[:90]}")
         return 1 - busy_ms / steady_ms
     log(f"{tag}: the profiler recorded no device time (not measured)")
     return None
+
+
+def profile_round(torch, sim, round_s, tag, top=12):
+    """Profile one more round of `sim`: device time by kernel, and the idle
+    share against the median of the unprofiled rounds after the first.
+    -> the idle share, or None where the profiler saw no device time."""
+    inputs = sim.next_round_inputs()
+    wall_ms, rows, busy_ms = profiled(torch, lambda: sim.run_round(*inputs))
+    steady_ms = sorted(round_s[1:])[len(round_s[1:]) // 2] * 1e3
+    return idle_share(tag, "round", wall_ms, rows, busy_ms, steady_ms, top)
 
 
 def expected_wire_launches(tag, rounds, n_leaves, h_steps):
@@ -794,15 +835,16 @@ def expected_wire_launches(tag, rounds, n_leaves, h_steps):
     return {name: rounds * n for name, n in per_round.items()}
 
 
-def expected_downlink_bytes(fed, transport, picks_per_round):
-    """Measured downlink bytes of the rounds' dispatches under `fed`,
-    recomputed from the wire sizes: multicast charges every client the
-    steady payload, with round 0 of the delta family at the full broadcast;
-    unicast charges fresh clients 0, catch-ups within the resync horizon the
-    delta payload and the rest the full broadcast."""
+def expected_downlink_bytes(fed, transport, waves):
+    """Measured downlink bytes of the dispatch waves ``(version, picks)``
+    under `fed`, in dispatch order, recomputed from the wire sizes:
+    multicast charges every client the steady payload, with version 0 of
+    the delta family at the full broadcast; unicast charges fresh clients 0,
+    catch-ups within the resync horizon the delta payload and the rest the
+    full broadcast."""
     steady, full = transport._down_nbytes, transport._down_raw
     total, last_seen = 0, {}
-    for version, picks in enumerate(picks_per_round):
+    for version, picks in waves:
         for c in map(int, picks):
             if not fed.downlink_unicast:
                 delta_family = fed.downlink_compressor.startswith("delta")
@@ -1696,6 +1738,408 @@ def serve_phase(torch, np):
     return launches
 
 
+# -- phases 10 and 11: the semi-async engine and the fleet ------------------
+# phase 10's fleet: a quarter of the clients 4x slower, H_i in (4, 8), 5%
+# of uploads lost, buffered-4 flushes
+ASYNC_HETERO = dict(enabled=True, speed_dist="bimodal", straggler_frac=0.25,
+                    straggler_slowdown=4.0, local_steps_choices=(4, 8),
+                    drop_prob=0.05, seed=0)
+ASYNC_FLUSHES = 12
+# the example's wire: top-k 10% with EF up, the lossless delta downlink per
+# client with resync_horizon 2; (b) the same uplink on the sparse wire
+ASYNC_WIRES = {
+    "a_topk_unicast": dict(compressor="topk", topk_frac=TOPK_FRAC,
+                           downlink_compressor="delta",
+                           downlink_unicast=True, resync_horizon=2),
+    "b_sparse_unicast": dict(compressor="topk", topk_frac=TOPK_FRAC,
+                             sparse_uplink=True, sparse_aggregate=True,
+                             downlink_compressor="delta",
+                             downlink_unicast=True, resync_horizon=2),
+}
+FLEET_REGIONS = 4
+FLEET_PAGES = 8           # EF pages the paged store's budget holds
+
+
+def dispatch_waves(engine):
+    """The dispatch waves of an async run, read off its event log: each
+    maximal run of dispatch events is one ``_dispatch`` call ->
+    [(version, [clients])]."""
+    waves, cur = [], None
+    for kind, _, client, version in engine.event_log:
+        if kind != "dispatch":
+            cur = None
+            continue
+        if cur is None:
+            cur = (version, [])
+            waves.append(cur)
+        cur[1].append(client)
+    return waves
+
+
+def expected_async_launches(engine, n_leaves, sparse):
+    """The launches an async run makes, from its event log: each wave's
+    clients train in one group per H_i (nesterov: two axpy sweeps a step;
+    the dense top-k uplink one select sweep a group), each flush one
+    aggregate and one server step."""
+    groups = table_groups(n_leaves)
+    want = {"fused_axpy": 0, "local_update": 0, "server_update": 0,
+            "weighted_reduce": 0, "threshold_select": 0, "qsgd": 0,
+            "sparse_reduce": 0, "kd_loss": 0, "kd_loss_bwd": 0,
+            "flash_attention": 0, "ssd_scan": 0}
+    n_groups = {}
+    for _, clients in dispatch_waves(engine):
+        for h in sorted({int(engine.system.local_steps[c]) for c in clients}):
+            n_groups[h] = n_groups.get(h, 0) + 1
+            want["fused_axpy"] += 2 * h * groups
+            if not sparse:
+                want["threshold_select"] += groups
+    want["server_update"] = engine.version * groups
+    if sparse:
+        want["sparse_reduce"] = engine.version
+    else:
+        want["weighted_reduce"] = engine.version * groups
+    return want, n_groups
+
+
+def update_rel_err(torch, T, got, want, start):
+    """|got - want| / |want - start| over whole trees (on the host)."""
+    num = sum(((a.cpu().double() - b.cpu().double()) ** 2).sum()
+              for a, b in zip(T.leaves(got), T.leaves(want)))
+    den = sum(((b.cpu().double() - p.cpu().double()) ** 2).sum()
+              for b, p in zip(T.leaves(want), T.leaves(start)))
+    return (num / den).sqrt().item()
+
+
+def async_phase(torch, data):
+    """Phase 10: the semi-async engine at the main path's full width."""
+    from repro_torch import async_straggler_example
+    from repro_torch.configs.base import FedConfig, HeteroConfig
+    from repro_torch.core import tree as T
+    from repro_torch.federated.async_engine import AsyncFederatedSimulator
+    from repro_torch.federated.simulator import FederatedSimulator, SimConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.vision import cnn_init
+    x, y, xt, yt, parts = data
+    params0 = cnn_init(17, width=32, image_size=32, device="cpu")
+    n_leaves = len(T.leaves(params0))
+
+    def engine(wire, hetero, buffer_k, rounds):
+        return AsyncFederatedSimulator(
+            FedConfig(eta=ETA, buffer_k=buffer_k, **wire),
+            SimConfig(model="cnn", n_classes=10, rounds=rounds,
+                      eval_every=rounds, cnn_width=32, seed=17),
+            HeteroConfig(**hetero), x, y, xt, yt, parts,
+            params=T.tree_map(lambda t: t.clone(), params0))
+
+    for tag, wire in ASYNC_WIRES.items():
+        sparse = bool(wire.get("sparse_uplink"))
+        # run 1: the launches and the bytes, untimed
+        e1 = engine(wire, ASYNC_HETERO, 4, ASYNC_FLUSHES)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = e1.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want, n_groups = expected_async_launches(e1, n_leaves, sparse)
+        kinds = [ev[0] for ev in e1.event_log]
+        log(f"async {tag}: {ASYNC_FLUSHES} flushes in {run_s:.3f}s "
+            f"(virtual time {e1.vtime}), {kinds.count('dispatch')} "
+            f"dispatches in {sum(n_groups.values())} groups by H_i "
+            f"{n_groups}, {kinds.count('arrive')} arrivals, "
+            f"{kinds.count('drop')} drops; staleness "
+            f"{e1.staleness_hist.to_dict()}; last {hist[-1]}")
+        log(f"async {tag}: launches {counts}, expected {want}")
+        if counts != want:
+            raise AssertionError(f"async {tag}: kernel launches differ from "
+                                 f"the count the event log predicts")
+        if not (e1.staleness_hist.max >= 1 and math.isfinite(hist[-1]["loss"])
+                and e1.version == ASYNC_FLUSHES):
+            raise AssertionError(f"async {tag}: no stale delta, a "
+                                 f"non-finite loss or a short run")
+        tr = e1.transport
+        up_want = kinds.count("arrive") * tr.uplink_wire_nbytes(e1.params)
+        down_want = expected_downlink_bytes(e1.fed, tr, dispatch_waves(e1))
+        log(f"async {tag}: uplink bytes {e1.uplink_bytes} (wire sizes give "
+            f"{up_want}, raw {e1.uplink_bytes_raw}); downlink bytes "
+            f"{e1.downlink_bytes} (the unicast ledger gives {down_want}, raw "
+            f"{e1.downlink_bytes_raw}); catch-ups {e1.refs.catchups}, "
+            f"resyncs {e1.refs.resyncs}")
+        if (e1.uplink_bytes, e1.downlink_bytes) != (up_want, down_want):
+            raise AssertionError(f"async {tag}: measured bytes differ from "
+                                 f"the wire sizes")
+        # run 2 from the same seeds, each flush and dispatch group timed
+        # (synchronised), the sixth flush profiled
+        e2 = engine(wire, ASYNC_HETERO, 4, ASYNC_FLUSHES)
+        flush_ms, group_ms, prof = [], {}, {}
+        flush, client_half = e2._flush, e2._client_half
+
+        def timed_flush(buffer):
+            if len(flush_ms) == 5 and not prof:
+                out = []
+                prof["wall"], prof["rows"], prof["busy"] = profiled(
+                    torch, lambda: out.append(flush(buffer)))
+                return out[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = flush(buffer)
+            torch.cuda.synchronize()
+            flush_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def timed_group(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = client_half(*args)
+            torch.cuda.synchronize()
+            group_ms.setdefault(args[2].shape[1], []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+        e2._flush, e2._client_half = timed_flush, timed_group
+        e2.run()
+        same = (list(e2.event_log) == list(e1.event_log)
+                and e2.staleness_hist.to_dict()
+                == e1.staleness_hist.to_dict())
+        log(f"async {tag}: second run from the same seeds: event log and "
+            f"staleness histogram identical: {same}")
+        if not same:
+            raise AssertionError(f"async {tag}: the event log is not "
+                                 f"deterministic")
+        med = sorted(flush_ms)[len(flush_ms) // 2]
+        log(f"async {tag}: ms per flush (synchronised) {flush_ms}, median "
+            f"{med:.3f}; ms per dispatch group by H_i "
+            f"{ {h: [round(v, 3) for v in ms] for h, ms in group_ms.items()} }")
+        idle_share(f"async {tag} flush profile", "flush", prof["wall"],
+                   prof["rows"], prof["busy"], med, 8)
+
+    # (c) heterogeneity off, buffer_k = 0: two flushes against two sync
+    # rounds from the same parameters and picks, cuDNN deterministic
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    e = engine({}, {}, 0, 2)
+    e.run()
+    s = FederatedSimulator(FedConfig(eta=ETA),
+                           SimConfig(model="cnn", n_classes=10, cnn_width=32,
+                                     seed=17),
+                           x, y, xt, yt, parts,
+                           params=T.tree_map(lambda t: t.clone(), params0))
+    for _ in range(2):
+        s.run_round(*s.next_round_inputs())
+    torch.backends.cudnn.deterministic = cudnn_det
+    err = update_rel_err(torch, T, e.params, s.params, params0)
+    biggest = max((a - b).abs().max().item()
+                  for a, b in zip(T.leaves(e.params), T.leaves(s.params)))
+    log(f"async (c) hetero off, buffer_k 0: 2 flushes against 2 sync "
+        f"rounds: |dθ async - dθ sync| / |dθ sync| = {err} (bar 1e-4), "
+        f"largest |θ async - θ sync| = {biggest}, staleness "
+        f"{e.staleness_hist.to_dict()}")
+    if not (err <= 1e-4 and e.staleness_hist.max == 0):
+        raise AssertionError("async (c): the engine departs from the sync "
+                             "simulator with heterogeneity off")
+
+    # (d) the port's async straggler example
+    t0 = time.perf_counter()
+    engines = async_straggler_example.run(device="cuda")
+    semi = engines["semi"].history[-1]
+    log(f"async (d) example: {time.perf_counter() - t0:.1f}s; sync "
+        f"{engines['sync'].history[-1]}, semi {semi}")
+    if not (math.isfinite(semi["loss"]) and 0.0 <= semi["acc"] <= 1.0):
+        raise AssertionError("async (d): the example's result is bad")
+
+
+def fleet_phase(torch, data):
+    """Phase 11: the fleet substrate at the main path's full width."""
+    import tempfile
+    import zlib
+
+    from repro_torch.checkpointing.checkpoint import (restore_checkpoint,
+                                                      save_checkpoint,
+                                                      storage_view)
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import tree as T
+    from repro_torch.federated.fleet import (FleetScheduler,
+                                             PagedClientStore, page_nbytes)
+    from repro_torch.federated.fleet.paged_store import COMPRESS_LEVEL
+    from repro_torch.federated.protocol import RoundProtocol
+    from repro_torch.federated.simulator import FederatedSimulator, SimConfig
+    from repro_torch.federated.store import ClientStore
+    from repro_torch.kernels import ops
+    from repro_torch.telemetry import Counters
+    x, y, xt, yt, parts = data
+
+    def same_bits(a, b):
+        return all(u.dtype == v.dtype and u.shape == v.shape
+                   and storage_view(u).tobytes() == storage_view(v).tobytes()
+                   for u, v in zip(T.leaves(a), T.leaves(b)))
+
+    # (a) one round's stacked deltas through protocol.aggregate
+    sim = FederatedSimulator(
+        FedConfig(eta=ETA), SimConfig(model="cnn", n_classes=10,
+                                      cnn_width=32, seed=19),
+        x, y, xt, yt, parts)
+    picks, xb, yb = sim.next_round_inputs()
+    counts = torch.as_tensor(sim.counts[picks], dtype=torch.float32,
+                             device="cuda")
+    params_w, ctx, _ = sim.protocol.client_ctx(sim.server_state, sim.params)
+    dense = sim._client_half(params_w, ctx, xb, yb, counts, None,
+                             sim.protocol.store.gather("ef", picks), None)[0]
+    sparse_fed = FedConfig(eta=ETA, **WIRES["b_topk_sparse"])
+    wire, _ = RoundProtocol(sparse_fed).uplink_encode(
+        dense, T.zeros_like(dense))
+    weights = torch.ones(K, device="cuda")
+    n_leaves = len(T.leaves(sim.params))
+    for kind, deltas, base in (("dense", dense, {}),
+                               ("sparse", wire, WIRES["b_topk_sparse"])):
+        out, ms, launched = {}, {}, {}
+        for regions in (0, 1, FLEET_REGIONS):
+            proto = RoundProtocol(FedConfig(eta=ETA, fleet_regions=regions,
+                                            **base))
+
+            def agg(proto=proto):
+                return proto.aggregate(deltas, weights, like=sim.params)
+            ops.reset_launch_counts()
+            out[regions] = agg()
+            torch.cuda.synchronize()
+            launched[regions] = {n: c for n, c in ops.launch_counts().items()
+                                 if c}
+            ms[regions] = cuda_ms(torch, agg)
+        flat, r1, r4 = out[0], out[1], out[FLEET_REGIONS]
+        bitwise = same_bits(flat, r1)
+        rel = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(T.leaves(r4), T.leaves(flat)))
+        groups = table_groups(n_leaves)
+        want = ({"weighted_reduce": (FLEET_REGIONS + 1) * groups}
+                if kind == "dense" else
+                {"sparse_reduce": FLEET_REGIONS, "weighted_reduce": groups})
+        log(f"fleet (a) {kind}: R=1 bit for bit flat: {bitwise}; R="
+            f"{FLEET_REGIONS} max |hier - flat| / max |flat| over leaves "
+            f"{rel} (bar 1e-5); launches {launched}; ms flat {ms[0]}, R=1 "
+            f"{ms[1]}, R={FLEET_REGIONS} {ms[FLEET_REGIONS]}")
+        if not (bitwise and rel <= 1e-5
+                and launched[FLEET_REGIONS] == want):
+            raise AssertionError(f"fleet (a) {kind}: the hierarchical "
+                                 f"aggregate departs from flat or launches "
+                                 f"other than {want}")
+    del dense, wire
+
+    # (b) four sync rounds with a FleetScheduler and a paged EF store that
+    # holds FLEET_PAGES pages, every scatter mirrored into a plain store
+    fed = FedConfig(eta=ETA, fleet_regions=FLEET_REGIONS,
+                    **WIRES["a_topk_dense"])
+    ef_page = page_nbytes(T.zeros_like(sim.params))
+    store = PagedClientStore(budget_bytes=FLEET_PAGES * ef_page,
+                             counters=Counters())
+    s = FederatedSimulator(
+        fed, SimConfig(model="cnn", n_classes=10, cnn_width=32, seed=19),
+        x, y, xt, yt, parts, store=store,
+        scheduler=FleetScheduler(fed, seed=19))
+    plain = ClientStore()
+    plain.register("ef", s._ef_init)
+    scatter, encode, decode = store.scatter, store._encode, store._decode
+    spill_ms, fault_ms = [], []
+
+    def tee(name, picks, stacked):
+        plain.scatter(name, picks, stacked)
+        scatter(name, picks, stacked)
+
+    def timed_encode(key, page):
+        t0 = time.perf_counter()
+        out = encode(key, page)
+        spill_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_decode(name, blob):
+        t0 = time.perf_counter()
+        out = decode(name, blob)
+        torch.cuda.synchronize()
+        fault_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    store.scatter, store._encode, store._decode = (tee, timed_encode,
+                                                   timed_decode)
+    round_s, cohorts = [], []
+    for _ in range(4):
+        inputs = s.next_round_inputs()
+        cohorts.append(inputs[0].tolist())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = s.run_round(*inputs)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        if not torch.isfinite(loss):
+            raise AssertionError(f"fleet (b): non-finite loss {loss}")
+    in_rounds = (store.counters.get("store.spills"),
+                 store.counters.get("store.loads"))
+    everyone = list(range(s.n_clients))
+    same = all(same_bits(T.tree_map(lambda t: t[0], store.gather("ef", [c])),
+                         T.tree_map(lambda t: t[0], plain.gather("ef", [c])))
+               for c in everyone)
+    spills, faults = (store.counters.get("store.spills"),
+                      store.counters.get("store.loads"))
+    log(f"fleet (b): R={FLEET_REGIONS} cohorts {cohorts}; round seconds "
+        f"{round_s}; EF page {ef_page} bytes, budget {store.budget_bytes} "
+        f"({FLEET_PAGES} pages), peak resident {store.peak_resident_bytes}; "
+        f"spills/faults in the rounds {in_rounds}, after gathering all "
+        f"{len(everyone)} clients back {(spills, faults)}; every page bit "
+        f"for bit the plain store's: {same}")
+    # one EF page's spill split into its two parts
+    page = T.zeros_like(sim.params)
+    for t in T.leaves(page):
+        t.normal_()
+    t0 = time.perf_counter()
+    bits = [storage_view(t).tobytes() for t in T.leaves(page)]
+    d2h_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    packed = [zlib.compress(b, COMPRESS_LEVEL) for b in bits]
+    zlib_ms = (time.perf_counter() - t0) * 1e3
+    log(f"fleet (b): ms per spill (D2H + zlib) {[round(v, 3) for v in spill_ms]}"
+        f"; ms per fault (zlib + H2D) {[round(v, 3) for v in fault_ms]}; one "
+        f"N(0, 1) page's spill: D2H and bit view {d2h_ms:.3f} ms, zlib level "
+        f"{COMPRESS_LEVEL} {zlib_ms:.3f} ms, {sum(map(len, bits))} -> "
+        f"{sum(map(len, packed))} bytes")
+    if not (same and store.peak_resident_bytes <= store.budget_bytes
+            and spills > 0 and faults > 0):
+        raise AssertionError("fleet (b): the paged store breaks its budget, "
+                             "never spills or faults, or loses a page")
+
+    # (c) checkpoints of the CNN's parameters and FedADC's fp32 momentum,
+    # with bf16 and fp8 copies; and paged pages in those dtypes
+    tree = {"params": s.params, "momentum": s.server_state["m"],
+            "bf16": T.cast(s.params, torch.bfloat16),
+            "e4m3": T.cast(s.params, torch.float8_e4m3fn),
+            "e5m2": T.cast(s.params, torch.float8_e5m2)}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as d:
+        t0 = time.perf_counter()
+        save_checkpoint(d, 4, tree)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = restore_checkpoint(d, 4, tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    ok = {k: same_bits(back[k], tree[k]) for k in tree}
+    log(f"fleet (c) checkpoint: {sum(t.numel() * t.element_size() for t in T.leaves(tree))} "
+        f"bytes saved in {save_s:.3f}s, restored to the card in "
+        f"{restore_s:.3f}s; bit for bit by part: {ok}")
+    pages = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
+               torch.float8_e5m2):
+        one = T.cast(s.params, dt)
+        ps = PagedClientStore(budget_bytes=page_nbytes(one))
+        ps.register("p", lambda one=one: T.zeros_like(one))
+        # three pages (θ, -θ, 2θ), negated and doubled before the cast
+        stacked = T.tree_map(lambda t, dt=dt: torch.stack([t, -t, 2 * t])
+                             .to(dt), s.params)
+        ps.scatter("p", [0, 1, 2], stacked)
+        pages[str(dt)] = (ps.spilled_pages == 2
+                          and same_bits(ps.gather("p", [0, 1, 2]), stacked))
+    log(f"fleet (c) paged store, three pages through a one-page budget: "
+        f"bit for bit by dtype {pages}")
+    if not (all(ok.values()) and all(pages.values())):
+        raise AssertionError("fleet (c): a checkpoint or a page did not "
+                             "round-trip bit for bit")
+
+
 def main():
     import numpy as np
     import torch
@@ -2045,7 +2489,7 @@ def main():
             wire_launches[name] += counts[name]
         tr = sim_w.transport
         up_want = R * K * tr.uplink_wire_nbytes(sim_w.params)
-        down_want = expected_downlink_bytes(fed_w, tr, picks_all)
+        down_want = expected_downlink_bytes(fed_w, tr, enumerate(picks_all))
         log(f"wire {tag}: uplink bytes {sim_w.uplink_bytes} (wire sizes "
             f"give {up_want}, raw {sim_w.uplink_bytes_raw}); downlink bytes "
             f"{sim_w.downlink_bytes} (wire sizes give {down_want}, raw "
@@ -2295,6 +2739,16 @@ def main():
     t0 = time.perf_counter()
     serve_launches = serve_phase(torch, np)
     log(f"serve: {time.perf_counter() - t0:.1f}s")
+
+    # -- 10. the semi-async engine on the main path ---------------------------
+    t0 = time.perf_counter()
+    async_phase(torch, (x, y, xt, yt, parts))
+    log(f"async: {time.perf_counter() - t0:.1f}s")
+
+    # -- 11. the fleet substrate on the main path -----------------------------
+    t0 = time.perf_counter()
+    fleet_phase(torch, (x, y, xt, yt, parts))
+    log(f"fleet: {time.perf_counter() - t0:.1f}s")
 
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     # launches: the update kernels' from the main path (phase 3), the wire

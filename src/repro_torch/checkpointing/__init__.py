@@ -1,0 +1,5 @@
+from repro_torch.checkpointing.checkpoint import (latest_step,
+                                                  restore_checkpoint,
+                                                  save_checkpoint)
+
+__all__ = ["latest_step", "restore_checkpoint", "save_checkpoint"]

@@ -1,14 +1,12 @@
 """The port's configurations, copies of the JAX package's
 ``configs/base.py``: the language models' ``ModelConfig`` with its block
 kinds and sub-configs (``:14-200``), the input shapes (``ShapeConfig``,
-``SHAPES``) and the federated-learning ``FedConfig`` (``:205-294``), with
-every field, so configs are built the same way for both packages.
+``SHAPES``), the federated-learning ``FedConfig`` (``:205-294``) and the
+fleet's ``HeteroConfig`` (``:297-325``), with every field, so configs are
+built the same way for both packages.
 
-The simulator supports a subset of the ``FedConfig`` fields;
-``repro_torch.federated.protocol.RoundProtocol`` raises
-``NotImplementedError`` on the rest.  ``FedConfig.use_pallas`` is kept for
-parity only: on a CUDA tensor the simulator always runs its kernels.  The
-LM stack supports the block kinds ``ATTN``, ``SHARED_ATTN`` and ``MAMBA2``
+``FedConfig.use_pallas`` is kept for parity only: on a CUDA tensor the
+engines always run their kernels.  The LM stack supports the block kinds ``ATTN``, ``SHARED_ATTN`` and ``MAMBA2``
 (``repro_torch.models.transformer`` raises on the rest).
 """
 from __future__ import annotations
@@ -255,7 +253,39 @@ class FedConfig:
     downlink_unicast: bool = False
     resync_horizon: int = 4
     # two-tier fleet topology: 0 = flat aggregation, R >= 1 = hierarchical
+    # (``federated/fleet``: R contiguous regional reduces, then one fp32
+    # combine of the partials; R = 1 is bit for bit the flat aggregate)
     fleet_regions: int = 0
+
+
+# ---------------------------------------------------------------------------
+# Client system heterogeneity (``federated/hetero.py``): the fleet's compute
+# speeds, availability and variable local work, as opposed to FedConfig,
+# which describes the algorithm.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class HeteroConfig:
+    enabled: bool = False
+    # compute-speed distribution over clients:
+    #   constant  — all clients speed 1 (the synchronous idealisation)
+    #   lognormal — exp(sigma·N(0,1)), long right tail of slow clients
+    #   uniform   — U[speed_range]
+    #   bimodal   — straggler_frac of clients run straggler_slowdown× slower
+    speed_dist: str = "constant"
+    speed_sigma: float = 0.5
+    speed_range: Tuple[float, float] = (0.25, 1.0)
+    straggler_frac: float = 0.25
+    straggler_slowdown: float = 4.0
+    # per-client local work H_i sampled uniformly from this set; () => every
+    # client runs fed.local_steps (homogeneous work).
+    local_steps_choices: Tuple[int, ...] = ()
+    # FedNova-style normalisation: rescale Δ_i by H_ref/H_i so heterogeneous
+    # local work aggregates without objective inconsistency.
+    fednova: bool = True
+    availability: float = 1.0      # P(client reachable at dispatch time)
+    drop_prob: float = 0.0         # P(in-flight client drops; delta lost)
+    time_jitter: float = 0.0       # multiplicative jitter on round times
+    seed: int = 0
 
 
 @dataclass(frozen=True)

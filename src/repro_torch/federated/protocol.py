@@ -1,20 +1,19 @@
 """The unified round protocol: strategy + aggregator + transport + store
-(counterpart of the JAX package's ``federated/protocol.py``, without its
-hierarchical branch).
+(counterpart of the JAX package's ``federated/protocol.py``).
 
 Every engine runs the same abstract round:
 
     1. broadcast   — θ_t and the strategy's client context go down the wire
-    2. local work  — clients run H local steps (engine-specific execution)
+    2. local work  — clients run H local steps (engine-specific execution:
+                     client-stacked in the simulator, dispatch groups of
+                     one H_i each in the async engine)
     3. uplink      — each delta rides the uplink codec against the client's
                      error-feedback residual from the ``ClientStore``
     4. aggregate   — pluggable weights + ``strategy.server_aggregate``, or
-                     the sparse-native aggregate of a SparseLeaf wire
+                     the sparse-native aggregate of a SparseLeaf wire; with
+                     ``fleet_regions > 0`` both run per region and the R
+                     partials combine in fp32 (``fleet.hierarchy``)
     5. server step — the strategy's momentum/update recursion
-
-The constructor also rejects every configuration this port does not
-support yet, with ``NotImplementedError``, so no run silently takes a path
-that differs from the reference.
 """
 from __future__ import annotations
 
@@ -32,20 +31,12 @@ from repro_torch.federated.transport import Transport
 # are *uniform* means, so non-uniform weights would bias them
 STATEFUL_SERVER_CORRECTION = ("scaffold", "feddyn")
 
-def check_supported(fed) -> None:
-    """Raise NotImplementedError for a config outside the port so far: the
-    fleet's hierarchical aggregation."""
-    if fed.fleet_regions > 0:
-        raise NotImplementedError(
-            f"not ported yet: fleet_regions={fed.fleet_regions}")
-
 
 class RoundProtocol:
     """One federated round's pluggable pieces, composed once per engine."""
 
     def __init__(self, fed, strategy=None, store: Optional[ClientStore] = None,
                  transport: Optional[Transport] = None, telemetry=None):
-        check_supported(fed)
         self.fed = fed
         self.strategy = strategy if strategy is not None \
             else get_strategy(fed.strategy)
@@ -60,6 +51,13 @@ class RoundProtocol:
         # per-client reference pages ride this protocol's client store
         self.refs = ReferenceStore(fed, self.transport, store=self.store,
                                    telemetry=telemetry)
+        # the two-tier fleet topology: aggregate() routes through the
+        # regional/global reduce (lazy import: the fleet composes on top of
+        # this module)
+        self.hierarchical = None
+        if fed.fleet_regions > 0:
+            from repro_torch.federated.fleet import HierarchicalAggregator
+            self.hierarchical = HierarchicalAggregator(fed, self.strategy)
         if fed.strategy in STATEFUL_SERVER_CORRECTION:
             if fed.aggregator != "uniform":
                 raise ValueError(
@@ -133,7 +131,11 @@ class RoundProtocol:
     def aggregate(self, deltas, weights, like=None):
         """Step 4b: Δ̄ through the strategy's shared reduction, or, for a
         stacked SparseLeaf wire, the sparse-native aggregate at K·k cost
-        (``like`` gives the dense output template)."""
+        (``like`` gives the dense output template).  With fleet regions
+        both reduces run per region and the partials combine in fp32, bit
+        for bit the flat aggregate at one region."""
+        if self.hierarchical is not None:
+            return self.hierarchical(deltas, weights, like=like)
         if A.is_sparse_tree(deltas):
             if like is None:
                 raise ValueError("sparse-native aggregation needs a dense "

@@ -17,7 +17,12 @@ on a leading axis of every leaf, takes the per-client gradients with
 ``torch.func.vmap(torch.func.grad_and_value(loss))``, and runs the H steps
 as a Python loop.  The update kernels then launch once per leaf on the
 stacked tensor, outside the vmap; the KD kernels launch inside it, once per
-step for all K clients, through their vmap rules.
+step for all K clients, through their vmap rules.  A round is two halves:
+the clients' (``_client_half``: the local steps and the uplink) and the
+server's (``_server_half``: weights, aggregate, server step); the
+semi-async engine calls each on its own, once per dispatch group and once
+per flush.  A ``fleet.FleetScheduler`` given as ``scheduler=`` picks each
+round's cohort region-major in place of the selector.
 
 Client picks and batches come from one ``np.random.RandomState(seed)``
 consumed in the reference's order (the selector call, then one permutation
@@ -77,14 +82,16 @@ class FederatedSimulator:
                  x_train, y_train, x_test, y_test,
                  parts: List[np.ndarray],
                  telemetry: Optional[Telemetry] = None,
-                 store=None, params=None, device=None, uniforms=None):
+                 store=None, params=None, device=None, uniforms=None,
+                 scheduler=None):
         self.device = resolve_device(device)
         self.fed, self.sim = fed, sim
+        # a fleet.FleetScheduler replaces the flat selector with
+        # region-major cohorts (an engine argument, like the store)
+        self.scheduler = scheduler
         self.telemetry = telemetry if telemetry is not None \
             else Telemetry.disabled(self._engine_name)
         self.strategy = get_strategy(fed.strategy)
-        # composing the protocol first rejects configs outside this slice
-        # before any data moves
         self.protocol = RoundProtocol(fed, strategy=self.strategy,
                                       store=store, telemetry=self.telemetry)
         self.transport = self.protocol.transport
@@ -214,8 +221,8 @@ class FederatedSimulator:
 
     def _client_update(self, theta_t, ctx, xb, yb, counts, cstates):
         """The round's K clients at once.  xb (K,H,b,...), yb (K,H,b),
-        counts (K,C) -> (client-stacked deltas, new client states, mean
-        loss, θ_H)."""
+        counts (K,C) -> (client-stacked deltas, new client states, the
+        (H, K) step losses, θ_H)."""
         strategy, fed = self.strategy, self.fed
         k, h_steps = xb.shape[:2]
 
@@ -252,12 +259,47 @@ class FederatedSimulator:
                                                        theta_t, theta, fed)
         elif fed.strategy == "moon":
             new_cstates = {"prev": theta}
-        return delta, new_cstates, torch.stack(losses).mean(), theta
+        return delta, new_cstates, torch.stack(losses), theta
+
+    def _client_half(self, params_w, ctx, xb, yb, counts, cstates, efs,
+                     up_key):
+        """The clients' half of a round: the local steps from the broadcast
+        (params_w, ctx), then the uplink -> (the wire the server aggregates,
+        new client states, new EF residuals, the (H, K) step losses, θ_H).
+        The async engine calls it once per dispatch group."""
+        protocol = self.protocol
+        deltas, ncs, losses, theta_hs = self._client_update(
+            params_w, ctx, xb, yb, counts, cstates)
+        if protocol.sparse_native:
+            # encode only: the (values, indices) wire flows straight into
+            # the sparse aggregate, with the same exact-complement EF
+            deltas, new_efs = protocol.uplink_encode(deltas, efs, up_key)
+        else:
+            deltas, new_efs = protocol.uplink(deltas, efs, up_key)
+        return deltas, ncs, new_efs, losses, theta_hs
+
+    def _aggregate(self, deltas, n_examples):
+        """Δ̄ of the stacked wire under the configured weights."""
+        protocol = self.protocol
+        weights = protocol.weights(deltas, n_examples=n_examples,
+                                   server_state=self.server_state,
+                                   like=self.params)
+        return protocol.aggregate(deltas, weights, like=self.params)
+
+    def _server_half(self, deltas, n_examples):
+        """The server's half of a round for the stateless-server
+        strategies: weights, aggregate and the strategy's server step ->
+        (params', server_state').  The async engine calls it once per
+        flush."""
+        return self.protocol.server_update(
+            self.server_state, self.params,
+            self._aggregate(deltas, n_examples))
 
     def _round(self, xb, yb, counts, cstates, n_examples, efs, keys, bcast):
-        """One round's device work.  ``keys`` = (uplink, downlink) draws;
-        ``bcast`` is the (params_w, ctx) wire of the delta family computed
-        through the ReferenceStore, or None to broadcast inline."""
+        """One round's device work: both halves.  ``keys`` = (uplink,
+        downlink) draws; ``bcast`` is the (params_w, ctx) wire of the delta
+        family computed through the ReferenceStore, or None to broadcast
+        inline."""
         strategy, fed, protocol = self.strategy, self.fed, self.protocol
         up_key, down_key = keys
         if bcast is None:
@@ -266,25 +308,18 @@ class FederatedSimulator:
                 down_key if self._lossy_downlink else None, None)
         else:
             params_w, ctx = bcast
-        deltas, ncs, loss, theta_hs = self._client_update(params_w, ctx, xb,
-                                                          yb, counts, cstates)
-        if protocol.sparse_native:
-            # encode only: the (values, indices) wire flows straight into
-            # the sparse aggregate, with the same exact-complement EF
-            deltas, new_efs = protocol.uplink_encode(deltas, efs, up_key)
-        else:
-            deltas, new_efs = protocol.uplink(deltas, efs, up_key)
-        weights = protocol.weights(deltas, n_examples=n_examples,
-                                   server_state=self.server_state,
-                                   like=self.params)
-        mean_delta = protocol.aggregate(deltas, weights, like=self.params)
+        deltas, ncs, new_efs, losses, theta_hs = self._client_half(
+            params_w, ctx, xb, yb, counts, cstates, efs, up_key)
         if fed.strategy == "feddyn":
+            # FedDyn's server step reads no Δ̄ (the reference's jit drops
+            # the unused aggregate; here it is not computed)
             mean_theta_h = T.tree_map(lambda d: torch.mean(d, 0), theta_hs)
             sum_drift = T.tree_map(
                 lambda d: -torch.sum(d, 0) / self.n_clients, deltas)
             new_params, new_ss = strategy.server_update_feddyn(
                 self.server_state, self.params, mean_theta_h, sum_drift, fed)
         elif fed.strategy == "scaffold":
+            mean_delta = self._aggregate(deltas, n_examples)
             dcs = T.sub(ncs, cstates)
             mean_dc = T.tree_map(lambda d: torch.mean(d, 0), dcs)["c_i"]
             part_frac = xb.shape[0] / self.n_clients
@@ -292,9 +327,8 @@ class FederatedSimulator:
                 self.server_state, self.params, mean_delta, mean_dc, fed,
                 part_frac)
         else:
-            new_params, new_ss = protocol.server_update(
-                self.server_state, self.params, mean_delta)
-        return new_params, new_ss, ncs, new_efs, loss
+            new_params, new_ss = self._server_half(deltas, n_examples)
+        return new_params, new_ss, ncs, new_efs, losses.mean()
 
     # ------------------------------------------------------------------
     def _client_batches(self, client: int, local_steps: Optional[int] = None):
@@ -324,7 +358,12 @@ class FederatedSimulator:
         stream -> (picks, xb, yb) with xb (K,H,b,...) and yb (K,H,b) on the
         device.  ``run`` consumes exactly this."""
         sel = SELECTORS[self.sim.selector]
-        if self.sim.selector == "random":
+        if self.scheduler is not None:
+            # region-major cohort: pick k of a scheduler cohort lands in the
+            # aggregator region that owns it by construction
+            picks = self.scheduler.sample_cohort(
+                self.fed.clients_per_round).clients
+        elif self.sim.selector == "random":
             picks = sel(self.rng, self.n_clients, self.fed.clients_per_round)
         else:
             picks = sel(self.rng, self.n_clients, self.fed.clients_per_round,

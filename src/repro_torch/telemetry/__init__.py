@@ -4,8 +4,9 @@ the telemetry slice).
 
 Engines take ``telemetry=`` and default to ``Telemetry.disabled()``.  The
 disabled facade keeps what the engines return — the eval ``history`` — and
-the counter registry the transport accounts its bytes into, and the named
-histograms (the downlink's per-client payload sizes); its tracer's ``span``
+the counter registry the transport accounts its bytes into (and the paged
+store its gauges), and the named histograms (the downlink's per-client
+payload sizes, the async engine's staleness); its tracer's ``span``
 is a no-op, and so are the serving engine's ``record_request`` and
 ``emit_summary``.  ``latency_summary`` (``telemetry/latency.py``) turns
 finished requests into the serving percentiles.
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import contextlib
 from collections import deque
-from typing import Dict
+from typing import Dict, Iterable
 
 from repro_torch.telemetry.latency import latency_summary, request_itl
 
@@ -33,8 +34,19 @@ class Counters:
     def inc(self, name: str, value: float = 1) -> None:
         self._c[name] = self._c.get(name, 0) + value
 
+    def set(self, name: str, value: float) -> None:
+        """A gauge: the value replaces the last one (the paged store's
+        resident pages and bytes)."""
+        self._c[name] = value
+
     def get(self, name: str, default: float = 0):
         return self._c.get(name, default)
+
+    def snapshot(self) -> Dict[str, float]:
+        return dict(self._c)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._c
 
 
 class Histogram:
@@ -63,6 +75,27 @@ class Histogram:
         self.count += 1
         self.total += v
         self.max = max(self.max, v)
+
+    def observe_many(self, values: Iterable[int]) -> None:
+        for v in values:
+            self.observe(v)
+
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+    def reset(self) -> None:
+        self.bins = [0] * self.n_bins
+        self.overflow = 0
+        self.count = 0
+        self.total = 0
+        self.max = 0
+
+    def to_dict(self) -> Dict[str, object]:
+        """The reference's export: trailing all-zero bins trimmed."""
+        last = max((i for i, b in enumerate(self.bins) if b), default=-1)
+        return {"bins": self.bins[:last + 1], "overflow": self.overflow,
+                "count": self.count, "mean": round(self.mean(), 4),
+                "max": self.max}
 
 
 class Tracer:

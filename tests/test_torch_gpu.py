@@ -862,3 +862,99 @@ def test_kd_forward_at_route_boundaries(dtype):
         want[3][0, 3:] = float("nan")
         kd_close(got, want)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_async_engine_on_the_card_matches_the_cpu():
+    """The semi-async engine on the card (TF32 off) against the CPU from the
+    same parameters and seeds: the event log and the bytes equal (they
+    depend only on numpy draws), the parameters within the one-step bar
+    1e-4 of the update (one local step a client, drops folded back into
+    the EF residuals, three buffered-2 flushes)."""
+    need_card()
+    from repro_torch.configs.base import HeteroConfig
+    from repro_torch.federated.async_engine import AsyncFederatedSimulator
+    from repro_torch.models.vision import cnn_init
+    x, y, xt, yt = make_image_dataset(400, 50, 10, image_size=16)
+    parts = sort_and_partition(y, 10, s=2)
+    params0 = cnn_init(5, width=8, image_size=16, device="cpu")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        engines = []
+        for device in ("cuda", "cpu"):
+            e = AsyncFederatedSimulator(
+                FedConfig(local_steps=1, clients_per_round=4, n_clients=10,
+                          eta=0.01, buffer_k=2, compressor="topk",
+                          topk_frac=0.1),
+                SimConfig(batch_size=16, cnn_width=8, rounds=3, seed=5),
+                HeteroConfig(enabled=True, speed_dist="bimodal",
+                             drop_prob=0.3, seed=2),
+                x, y, xt, yt, parts, device=device,
+                params=T.tree_map(lambda t: t.clone(), params0))
+            e.run()
+            engines.append(e)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    card, cpu = engines
+    assert list(card.event_log) == list(cpu.event_log)
+    assert any(ev[0] == "drop" for ev in cpu.event_log)
+    assert (card.uplink_bytes, card.downlink_bytes) == (cpu.uplink_bytes,
+                                                        cpu.downlink_bytes)
+    num = sum(((a.cpu() - b) ** 2).sum()
+              for a, b in zip(T.leaves(card.params), T.leaves(cpu.params)))
+    den = sum(((b - p) ** 2).sum()
+              for b, p in zip(T.leaves(cpu.params), T.leaves(params0)))
+    assert (num / den).sqrt().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_fleet_and_checkpoints_on_the_card(tmp_path):
+    """One region is bit for bit the flat aggregate on the card, dense and
+    sparse; paged pages and checkpoints of card tensors round-trip bit for
+    bit in fp32, bf16 and fp8."""
+    need_card()
+    from repro_torch.checkpointing.checkpoint import (restore_checkpoint,
+                                                      save_checkpoint,
+                                                      storage_view)
+    from repro_torch.federated.compression import SparseLeaf
+    from repro_torch.federated.fleet import PagedClientStore, page_nbytes
+    from repro_torch.federated.protocol import RoundProtocol
+
+    def same(a, b):
+        return all(storage_view(u).tobytes() == storage_view(v).tobytes()
+                   for u, v in zip(T.leaves(a), T.leaves(b)))
+    g = torch.Generator().manual_seed(0)
+    like = {"w": torch.zeros(37, 29, device="cuda"),
+            "b": torch.zeros(300, device="cuda")}
+    dense = {k: torch.randn((6,) + v.shape, generator=g).cuda()
+             for k, v in like.items()}
+    sparse = {k: SparseLeaf(torch.randn(6, 9, generator=g).cuda(),
+                            torch.stack([torch.randperm(v.numel(),
+                                                        generator=g)[:9]
+                                         for _ in range(6)])
+                            .to("cuda", torch.int32))
+              for k, v in like.items()}
+    w = torch.rand(6, generator=g).cuda()
+    for deltas in (dense, sparse):
+        flat, hier = (RoundProtocol(FedConfig(fleet_regions=r,
+                                              clients_per_round=6))
+                      .aggregate(deltas, w, like=like) for r in (0, 1))
+        assert same(flat, hier)
+    for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn,
+               torch.float8_e5m2):
+        page = {k: v.to(dt) for k, v in like.items()}
+        store = PagedClientStore(budget_bytes=page_nbytes(page))
+        store.register("p", lambda page=page: T.zeros_like(page))
+        stacked = {k: torch.randn((3,) + v.shape, generator=g).cuda().to(dt)
+                   for k, v in like.items()}
+        store.scatter("p", [0, 1, 2], stacked)
+        assert store.spilled_pages == 2
+        got = store.gather("p", [0, 1, 2])
+        assert got["w"].is_cuda and same(got, stacked)
+        save_checkpoint(str(tmp_path), 0, stacked)
+        back = restore_checkpoint(str(tmp_path), 0, stacked)
+        assert back["w"].is_cuda and same(back, stacked)
