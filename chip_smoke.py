@@ -157,7 +157,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               100 clients' pages bit for bit a plain ClientStore's fed the
               same scatters; (c) checkpoints of the CNN's parameters, FedADC's
               fp32 momentum and bf16, e4m3 and e5m2 copies, and paged pages
-              in those dtypes, all bit for bit.
+              in those dtypes, all bit for bit;
+12. bench   — the paper's benchmark drivers (``repro_torch.benchmarks``) on
+              the card, each driver's ``main(rows)`` in turn, nothing
+              caught: fig1, fig2, the beta ablation, client selection,
+              Table I, fig5, fig7 (CNN width 8 on 16x16 images, 20 clients;
+              fig1 and clustering at their ROUNDS, the rest at the halved
+              ROUNDS BENCH_CUTS gives, each cut logged), the
+              straggler bench, the fleet bench's smoke, comm_load and the
+              serving bench with its smoke: every row name equal to
+              BENCH_ROWS, fig1's FedADC - FedAvg at s=2 above 0, the
+              launches of fig1 and of Table I's first FedADC+ run equal to
+              what their rounds predict, the fleet smoke's byte fields and
+              headline equal to the committed BENCH_fleet.json's, the
+              serving smoke's counters to BENCH_serving_smoke.json's,
+              comm_load's unicast rows equal to multicast under full
+              participation within the resync horizon (h4) and the delta
+              downlink within 1.1x raw; each driver's seconds and us
+              column, one profiled fig1 round's idle share.  The JSONs go
+              to chiprun_out/.
 
 Every time is measured here, on the card named in the output.  Bounds use
 the H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s of fp32 outside the
@@ -2140,6 +2158,344 @@ def fleet_phase(torch, data):
                              "round-trip bit for bit")
 
 
+# -- phase 12: the paper's benchmark drivers ----------------------------------
+# each driver's rows, by name, in the order the reference's driver emits them
+# (tests/test_torch_benchmarks.py holds this literal to the reference's)
+BENCH_ROWS = {
+    "fig1_acceleration": [
+        "fig1.s2.fedavg", "fig1.s2.slowmo", "fig1.s2.fedadc",
+        "fig1.s2.fedadc_minus_fedavg", "fig1.s3.fedavg", "fig1.s3.slowmo",
+        "fig1.s3.fedadc", "fig1.s3.fedadc_minus_fedavg", "fig1.s4.fedavg",
+        "fig1.s4.slowmo", "fig1.s4.fedadc", "fig1.s4.fedadc_minus_fedavg",
+    ],
+    "fig2_robustness": [
+        "fig2.s2.final", "fig2.s2.early", "fig2.s3.final", "fig2.s3.early",
+        "fig2.s4.final", "fig2.s4.early", "fig2.final_acc_spread",
+        "fig2.s2.nesterov", "fig2.s2.heavyball",
+    ],
+    "ablation_beta": [
+        "ablation.beta0.6", "ablation.beta0.7", "ablation.beta0.8",
+        "ablation.beta0.9", "ablation.beta_local_0",
+        "ablation.beta_local_half", "ablation.beta_local_full",
+        "ablation.drift_control_gain",
+    ],
+    "clustering": [
+        "clustering.random", "clustering.class_coverage",
+        "clustering.coverage_minus_random",
+    ],
+    "table1_sota": [
+        "table1.s2.fedavg", "table1.s2.moon", "table1.s2.fedgkd",
+        "table1.s2.fedntd", "table1.s2.feddyn", "table1.s2.fedprox",
+        "table1.s2.scaffold", "table1.s2.fedadc", "table1.s2.fedadc+",
+        "table1.s2.fedrs", "table1.s2.ours_minus_best_baseline",
+        "table1.dir0.3.fedavg", "table1.dir0.3.moon", "table1.dir0.3.fedgkd",
+        "table1.dir0.3.fedntd", "table1.dir0.3.feddyn",
+        "table1.dir0.3.fedprox", "table1.dir0.3.scaffold",
+        "table1.dir0.3.fedadc", "table1.dir0.3.fedadc+",
+        "table1.dir0.3.ours_minus_best_baseline",
+    ],
+    "fig5_scale": [
+        "fig5.C0.06.fedadc+", "fig5.C0.06.feddyn", "fig5.C0.06.fedavg",
+    ],
+    "fig7_personalization": [
+        "fig7.global_model_local_acc", "fig7.personalized.none",
+        "fig7.gain.none", "fig7.personalized.prox", "fig7.gain.prox",
+        "fig7.personalized.kd", "fig7.gain.kd",
+    ],
+    "straggler_bench": [
+        "straggler.sync.t_to_target", "straggler.semi.t_to_target",
+        "straggler.semi_vs_sync_speedup", "straggler.semi.max_staleness",
+    ],
+    "fleet_bench": [
+        "fleet.K1000.flat", "fleet.K1000.hier", "fleet.K10000.flat",
+        "fleet.K10000.hier", "fleet.K100000.flat", "fleet.K100000.hier",
+    ],
+    "comm_load": [
+        "comm.qwen3-4b.fedavg", "comm.qwen3-4b.slowmo",
+        "comm.qwen3-4b.fedadc_naive", "comm.qwen3-4b.fedadc_overlap",
+        "comm.qwen3-4b.measured.up.raw", "comm.qwen3-4b.measured.up.topk10",
+        "comm.qwen3-4b.measured.up.qsgd4", "comm.qwen3-4b.measured.up.qsgd8",
+        "comm.qwen3-4b.measured.down.fedavg.raw",
+        "comm.qwen3-4b.measured.down.fedavg.topk10",
+        "comm.qwen3-4b.measured.down.fedavg.qsgd8",
+        "comm.qwen3-4b.measured.down.fedavg.delta",
+        "comm.qwen3-4b.measured.down.fedavg.delta_topk10",
+        "comm.qwen3-4b.measured.down.fedavg.delta_qsgd8",
+        "comm.qwen3-4b.measured.down.slowmo.raw",
+        "comm.qwen3-4b.measured.down.slowmo.topk10",
+        "comm.qwen3-4b.measured.down.slowmo.qsgd8",
+        "comm.qwen3-4b.measured.down.slowmo.delta",
+        "comm.qwen3-4b.measured.down.slowmo.delta_topk10",
+        "comm.qwen3-4b.measured.down.slowmo.delta_qsgd8",
+        "comm.qwen3-4b.measured.down.fedadc.raw",
+        "comm.qwen3-4b.measured.down.fedadc.topk10",
+        "comm.qwen3-4b.measured.down.fedadc.qsgd8",
+        "comm.qwen3-4b.measured.down.fedadc.delta",
+        "comm.qwen3-4b.measured.down.fedadc.delta_topk10",
+        "comm.qwen3-4b.measured.down.fedadc.delta_qsgd8",
+        "comm.qwen3-4b.fedadc_delta_downlink",
+        "comm.qwen3-4b.unicast.delta.h4", "comm.qwen3-4b.unicast.delta.h0",
+        "comm.qwen3-4b.unicast.delta_identity.h4",
+        "comm.qwen3-4b.unicast.delta_identity.h0", "comm.qwen3-14b.fedavg",
+        "comm.qwen3-14b.slowmo", "comm.qwen3-14b.fedadc_naive",
+        "comm.qwen3-14b.fedadc_overlap", "comm.qwen3-14b.measured.up.raw",
+        "comm.qwen3-14b.measured.up.topk10",
+        "comm.qwen3-14b.measured.up.qsgd4", "comm.qwen3-14b.measured.up.qsgd8",
+        "comm.qwen3-14b.measured.down.fedavg.raw",
+        "comm.qwen3-14b.measured.down.fedavg.topk10",
+        "comm.qwen3-14b.measured.down.fedavg.qsgd8",
+        "comm.qwen3-14b.measured.down.fedavg.delta",
+        "comm.qwen3-14b.measured.down.fedavg.delta_topk10",
+        "comm.qwen3-14b.measured.down.fedavg.delta_qsgd8",
+        "comm.qwen3-14b.measured.down.slowmo.raw",
+        "comm.qwen3-14b.measured.down.slowmo.topk10",
+        "comm.qwen3-14b.measured.down.slowmo.qsgd8",
+        "comm.qwen3-14b.measured.down.slowmo.delta",
+        "comm.qwen3-14b.measured.down.slowmo.delta_topk10",
+        "comm.qwen3-14b.measured.down.slowmo.delta_qsgd8",
+        "comm.qwen3-14b.measured.down.fedadc.raw",
+        "comm.qwen3-14b.measured.down.fedadc.topk10",
+        "comm.qwen3-14b.measured.down.fedadc.qsgd8",
+        "comm.qwen3-14b.measured.down.fedadc.delta",
+        "comm.qwen3-14b.measured.down.fedadc.delta_topk10",
+        "comm.qwen3-14b.measured.down.fedadc.delta_qsgd8",
+        "comm.qwen3-14b.fedadc_delta_downlink",
+        "comm.qwen3-14b.unicast.delta.h4", "comm.qwen3-14b.unicast.delta.h0",
+        "comm.qwen3-14b.unicast.delta_identity.h4",
+        "comm.qwen3-14b.unicast.delta_identity.h0",
+    ],
+    "serving_bench": [
+        "serving.slots1.tokens_per_s", "serving.slots1.p50_p95_s",
+        "serving.slots1.ttft_itl_p50_s", "serving.slots2.tokens_per_s",
+        "serving.slots2.p50_p95_s", "serving.slots2.ttft_itl_p50_s",
+        "serving.slots4.tokens_per_s", "serving.slots4.p50_p95_s",
+        "serving.slots4.ttft_itl_p50_s", "serving.slots8.tokens_per_s",
+        "serving.slots8.p50_p95_s", "serving.slots8.ttft_itl_p50_s",
+        "serving.batch_vs_serial_speedup",
+    ],
+}
+# ROUNDS a figure driver runs at inside phase 12, where the phase cuts it
+# (module -> rounds); a driver not named here runs at its own ROUNDS.  At
+# their own ROUNDS the drivers took 301.7 s on one H100 (700 W), so it keeps
+# fig1 and clustering whole and halves the rest (fig2 needs a multiple of
+# 3: it evaluates every ROUNDS // 3); `python -m repro_torch.benchmarks.run`
+# runs them all at their own ROUNDS.  fig7 trains its fixed 20 rounds.
+BENCH_CUTS = {"fig2_robustness": 30, "ablation_beta": 25, "table1_sota": 25,
+              "fig5_scale": 25}
+# the fleet bench's fields that depend only on the seed and the sizes: they
+# must equal the committed BENCH_fleet.json's (its rounds_per_s may differ)
+FLEET_FIELDS = ("peak_staging_bytes", "peak_store_bytes", "peak_host_bytes",
+                "budget_ok", "spills_per_round", "loads_per_round")
+FLEET_HEADLINE = ("hier_le_flat_peak_at_1e5", "budget_ok_at_1e5",
+                  "peak_host_hier_over_flat_at_1e5")
+# the kernels the drivers run; the wire and LM kernels they never reach
+BENCH_KERNELS = ("fused_axpy", "local_update", "server_update",
+                 "weighted_reduce", "kd_loss", "kd_loss_bwd")
+
+
+def expected_fl_launches(runs, n_leaves):
+    """The launches of nesterov runs ``(strategy, rounds, H, distill)``:
+    per round and 64 leaves, FedAvg's H SGD sweeps (fused_axpy) and one
+    aggregate, SlowMo's the same and one server step, FedADC's 2H axpy
+    sweeps (the half step and the step), one aggregate and one server
+    step; FedADC+ adds H kd_loss and H kd_loss_bwd launches a round (one
+    per step for all the round's clients)."""
+    groups = table_groups(n_leaves)
+    want = {name: 0 for name in ("fused_axpy", "local_update",
+                                 "server_update", "weighted_reduce",
+                                 "threshold_select", "qsgd", "sparse_reduce",
+                                 "kd_loss", "kd_loss_bwd", "flash_attention",
+                                 "ssd_scan")}
+    for strategy, rounds, h, distill in runs:
+        sweeps = 2 * h if strategy == "fedadc" else h
+        want["fused_axpy"] += rounds * sweeps * groups
+        want["weighted_reduce"] += rounds * groups
+        want["server_update"] += rounds * groups * (strategy != "fedavg")
+        if distill:
+            want["kd_loss"] += rounds * h
+            want["kd_loss_bwd"] += rounds * h
+    return want
+
+
+def derived(rows, name):
+    return next(r.split(",", 2)[2] for r in rows if r.split(",")[0] == name)
+
+
+def launch_diff(ops, before):
+    return {n: c - before[n] for n, c in ops.launch_counts().items()}
+
+
+def bench_phase(torch):
+    """Phase 12: every ported driver's ``main(rows)`` on the card, in the
+    order of ``BENCH_ROWS`` (the fleet bench with ``smoke=True``, then the
+    serving smoke), nothing caught.  Checks the row names, fig1's
+    FedADC-minus-FedAvg at s=2, the launches of fig1 and of Table I's
+    first FedADC+ run, the fleet and serving smokes against the committed
+    JSONs, comm_load's unicast and delta-downlink claims, and that the
+    drivers launch their six kernels and no other; logs each
+    driver's us column, its seconds, and the idle share of one profiled
+    fig1 round."""
+    import importlib
+    from repro_torch.benchmarks import common
+    from repro_torch.benchmarks.fleet_bench import FLEETS, REGIONS
+    from repro_torch.kernels import ops
+    from repro_torch.models.vision import cnn_init
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    n_leaves = len(leaf_shapes(cnn_init(0, width=8, image_size=16,
+                                        device="cpu")))
+    mods = {name: importlib.import_module(f"repro_torch.benchmarks.{name}")
+            for name in BENCH_ROWS}
+    for name, rounds in BENCH_CUTS.items():
+        log(f"bench: {name} cut to ROUNDS {rounds} in this phase (its own: "
+            f"{mods[name].ROUNDS})")
+        mods[name].ROUNDS = rounds
+    totals = {n: 0 for n in ops.KERNELS}
+    seconds = {}
+
+    def drive(name, **kw):
+        """One driver's main on the card -> (its rows, its launches)."""
+        rows, before = [], ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mods[name].main(rows, device="cuda", **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        counts = launch_diff(ops, before)
+        for n, c in counts.items():
+            totals[n] += c
+        us = {r.split(",")[0]: float(r.split(",")[1]) for r in rows
+              if float(r.split(",")[1]) != 0}
+        log(f"bench {name}: {seconds[name]:.1f} s, {len(rows)} rows, "
+            f"us column {json.dumps(us)}")
+        if [r.split(",")[0] for r in rows] != BENCH_ROWS[name]:
+            raise AssertionError(f"bench {name}: row names differ from the "
+                                 f"reference's")
+        return rows, counts
+
+    # fig1: launches for its nine runs, the paper's claim at s=2
+    rows, counts = drive("fig1_acceleration")
+    r1 = mods["fig1_acceleration"].ROUNDS
+    want = expected_fl_launches(
+        [(s, r1, 8, False) for s in ("fedavg", "slowmo", "fedadc")] * 3,
+        n_leaves)
+    log(f"bench fig1: launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError("bench fig1: kernel launches differ from the "
+                             "count the rounds should make")
+    gap = float(derived(rows, "fig1.s2.fedadc_minus_fedavg"))
+    log(f"bench fig1: FedADC - FedAvg at s=2: {gap:+.3f}")
+    if not gap > 0:
+        raise AssertionError("bench fig1: FedADC does not beat FedAvg at s=2")
+    # one more fig1 FedADC run at s=2: five timed rounds, then a profiled one
+    data = common.dataset()
+    sim = common.run_fl("fedadc", common.partitions(data[1], 20, "sort", 2),
+                        data, rounds=1, eta=0.01, device="cuda")["sim"]
+    round_s = []
+    for _ in range(5):
+        inputs = sim.next_round_inputs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run_round(*inputs)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+    log(f"bench fig1: fedadc s=2 round seconds {round_s}")
+    profile_round(torch, sim, round_s, "bench fig1 profile", top=8)
+    del sim
+
+    drive("fig2_robustness")
+    drive("ablation_beta")
+    drive("clustering")
+    # Table I: the launches of its first FedADC+ run (s2) on their own
+    table1, table_counts = mods["table1_sota"], {}
+    run_fl = table1.run_fl
+
+    def counted(strategy, *a, distill=False, **k):
+        first = distill and not table_counts
+        before = ops.launch_counts()
+        r = run_fl(strategy, *a, distill=distill, **k)
+        if first:
+            table_counts.update(launch_diff(ops, before))
+        return r
+    table1.run_fl = counted
+    try:
+        drive("table1_sota")
+    finally:
+        table1.run_fl = run_fl
+    want = expected_fl_launches([("fedadc", table1.ROUNDS, 8, True)],
+                                n_leaves)
+    log(f"bench table1: the s2 FedADC+ run's launches {table_counts}, "
+        f"expected {want}")
+    if table_counts != want:
+        raise AssertionError("bench table1: FedADC+ launches differ from the "
+                             "count the rounds should make")
+    drive("fig5_scale")
+    drive("fig7_personalization")
+    drive("straggler_bench")
+    # the fleet bench's smoke: its byte fields against the committed JSON;
+    # one weighted reduce a flat round, REGIONS + 1 a hierarchical one
+    fleet_json = out_dir / "BENCH_fleet_torch.json"
+    _, counts = drive("fleet_bench", out_json=str(fleet_json), smoke=True)
+    mine = json.loads(fleet_json.read_text())
+    ref_fleet = json.loads((ROOT / "BENCH_fleet.json").read_text())
+    want_wr = len(FLEETS) * mine["rounds_per_cell"] * (1 + REGIONS + 1)
+    mismatch = [
+        (c["fleet"], c["mode"], k, c[k], r[k])
+        for c, r in zip(mine["cells"], ref_fleet["cells"])
+        for k in FLEET_FIELDS + ("fleet", "mode") if c[k] != r[k]]
+    mismatch += [(k, mine["headline"][k], ref_fleet["headline"][k])
+                 for k in FLEET_HEADLINE
+                 if mine["headline"][k] != ref_fleet["headline"][k]]
+    log(f"bench fleet: rounds_per_s "
+        f"{[(c['fleet'], c['mode'], c['rounds_per_s']) for c in mine['cells']]}"
+        f"; weighted_reduce launches {counts['weighted_reduce']} (expected "
+        f"{want_wr}); fields differing from BENCH_fleet.json: {mismatch}")
+    if mismatch or len(mine["cells"]) != len(ref_fleet["cells"]) \
+            or counts["weighted_reduce"] != want_wr:
+        raise AssertionError("bench fleet: the smoke differs from the "
+                             "committed BENCH_fleet.json")
+    # comm_load: under full participation a unicast delta within its resync
+    # horizon (h4) costs what multicast does; at horizon 0 every returning
+    # client resyncs (the reference's rows say False there too)
+    rows, _ = drive("comm_load")
+    chained = [r for r in rows if ".unicast." in r.split(",")[0]
+               and r.split(",")[0].endswith(".h4")]
+    resync = [r for r in rows if ".unicast." in r.split(",")[0]
+              and r.split(",")[0].endswith(".h0")]
+    delta = [r for r in rows if r.split(",")[0].endswith(
+        ".fedadc_delta_downlink")]
+    if not (len(chained) == len(resync) == 4 and len(delta) == 2
+            and all("full_eq_multicast=True" in r for r in chained)
+            and all(";catchups=0;" in r for r in resync)
+            and all(r.endswith("le_1p1=True") for r in delta)):
+        raise AssertionError("bench comm_load: full participation unicast "
+                             "!= multicast within the horizon, or the delta "
+                             "downlink > 1.1x")
+    log("bench comm_load: full_eq_multicast=True on the 4 h4 unicast rows "
+        "(h0: resyncs only), le_1p1=True for both archs")
+    drive("serving_bench", out_json=str(out_dir / "BENCH_serving_torch.json"))
+    # the serving smoke: no stop rule but max_new_tokens ends a request, so
+    # its counters depend only on the lengths and the scheduler
+    t0 = time.perf_counter()
+    report = mods["serving_bench"].smoke(
+        out_json=str(out_dir / "BENCH_serving_smoke_torch.json"),
+        device="cuda")
+    want = json.loads((ROOT / "BENCH_serving_smoke.json").read_text())
+    log(f"bench serving smoke: {time.perf_counter() - t0:.1f} s, {report} "
+        f"(committed: {want})")
+    if report != want:
+        raise AssertionError("bench serving smoke: counters differ from the "
+                             "committed BENCH_serving_smoke.json")
+    log(f"bench: launches over the phase {totals}")
+    if min(totals[n] for n in BENCH_KERNELS) == 0 or any(
+            c for n, c in totals.items() if n not in BENCH_KERNELS):
+        raise AssertionError("bench: a driver kernel never launched, or a "
+                             "kernel off the drivers' path did")
+    log(f"bench: driver seconds {json.dumps(seconds)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import numpy as np
     import torch
@@ -2749,6 +3105,11 @@ def main():
     t0 = time.perf_counter()
     fleet_phase(torch, (x, y, xt, yt, parts))
     log(f"fleet: {time.perf_counter() - t0:.1f}s")
+
+    # -- 12. the paper's benchmark drivers -----------------------------------
+    t0 = time.perf_counter()
+    bench_phase(torch)
+    log(f"bench: {time.perf_counter() - t0:.1f}s")
 
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     # launches: the update kernels' from the main path (phase 3), the wire

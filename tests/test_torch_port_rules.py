@@ -1,5 +1,6 @@
-"""Rules of the PyTorch port: it imports neither JAX nor the JAX package,
-and its entry points run on the card unless asked for the CPU."""
+"""Rules of the PyTorch port: it imports neither JAX nor the JAX package
+nor the reference's top-level ``benchmarks``, and its entry points run on
+the card unless asked for the CPU."""
 import os
 import pkgutil
 import re
@@ -18,8 +19,8 @@ from repro_torch.federated.simulator import FederatedSimulator, SimConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
-                       re.MULTILINE)
+FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro|benchmarks)\b|"
+                       r"from\s+(jax|repro|benchmarks)[\s.])", re.MULTILINE)
 
 
 def port_modules():
@@ -31,8 +32,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {port_modules()!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
-            "       or m.startswith(('jax.', 'repro.'))]\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'repro', "
+            "'benchmarks')\n"
+            "       or m.startswith(('jax.', 'repro.', 'benchmarks.'))]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
