@@ -24,11 +24,14 @@ card otherwise.  Prints ``name,us_per_call,derived`` CSV.  Modules:
   serving_bench      — continuous batching vs serial decode: offered-load
                        sweep, tokens/sec + p50/p95 latency (emits
                        BENCH_serving_torch.json)
+  comm_sweep         — accuracy-vs-bytes frontier: strategy x uplink codec,
+                       the async compression x staleness axis, intermittent
+                       participation, the downlink codecs, with drift
+                       curves (emits BENCH_comm_torch.json)
+  telemetry_bench    — telemetry on vs off overhead, the <=5% contract
+                       (emits BENCH_telemetry_torch.json)
 
 Not ported yet (``--only`` with one of these names exits non-zero):
-  comm_sweep         — accuracy-vs-uplink-bytes frontier (ROADMAP Queue 1,
-                       item 17a: needs the telemetry slice)
-  telemetry_bench    — telemetry on vs off overhead (item 17)
   lm_round           — one LM federated round on the pod engine (item 19)
   roofline_report    — roofline terms from the dry-run artifacts (item 19)
   kernels_bench      — kernels µs/call + derived bytes/flops (item 21)
@@ -43,10 +46,9 @@ from repro_torch.device import resolve_device
 
 MODULES = ("fig1_acceleration", "fig2_robustness", "ablation_beta",
            "clustering", "table1_sota", "fig5_scale", "fig7_personalization",
-           "straggler_bench", "fleet_bench", "comm_load", "serving_bench")
+           "straggler_bench", "fleet_bench", "comm_load", "serving_bench",
+           "comm_sweep", "telemetry_bench")
 UNPORTED = {
-    "comm_sweep": "ROADMAP Queue 1 item 17a",
-    "telemetry_bench": "ROADMAP Queue 1 item 17",
     "lm_round": "ROADMAP Queue 1 item 19",
     "roofline_report": "ROADMAP Queue 1 item 19",
     "kernels_bench": "ROADMAP Queue 1 item 21",

@@ -136,10 +136,13 @@ class AsyncFederatedSimulator(FederatedSimulator):
         def compute(ref):
             key = UniformDraws(self.uniforms, (self.version, "downlink"),
                                self.device)
-            with self.telemetry.tracer.span("transport.encode"):
-                return self.protocol.client_ctx(
+            with self.telemetry.tracer.span("transport.encode") as sp:
+                out = self.protocol.client_ctx(
                     self.server_state, self.params,
                     key if self._lossy_downlink else None, ref)
+                if self.telemetry.enabled:
+                    sp.sync = out[0]
+            return out
         return self.refs.broadcast(self.version, compute)
 
     def _sample_clients(self, n: int) -> np.ndarray:
@@ -187,9 +190,11 @@ class AsyncFederatedSimulator(FederatedSimulator):
             up_key = UniformDraws(self.uniforms,
                                   (self._dispatch_ctr, "uplink"), self.device)
             self._dispatch_ctr += 1
-            with self.telemetry.tracer.span("local_train"):
+            with self.telemetry.tracer.span("local_train") as sp:
                 deltas, _, new_efs, losses, _ = self._client_half(
                     params_w, ctx, xb, yb, counts, None, efs, up_key)
+                if self.telemetry.enabled:
+                    sp.sync = deltas
             if self.ef_enabled:
                 self.protocol.store.scatter("ef", group, new_efs)
             # one host fetch for the group's per-client mean losses
@@ -213,8 +218,10 @@ class AsyncFederatedSimulator(FederatedSimulator):
 
     def _flush(self, buffer: List[_InFlight]) -> float:
         """Apply one buffered-K server update from the collected deltas ->
-        the buffer's mean local loss."""
-        fed = self.fed
+        the buffer's mean local loss.  With telemetry on, the drift
+        diagnostics over the scaled rows (what the server averaged) are
+        recorded under the new version, with the staleness seen."""
+        fed, tel = self.fed, self.telemetry
         stale = np.asarray([self.version - r.version for r in buffer])
         self.staleness_hist.observe_many(int(s) for s in stale)
         disc = staleness_discount(stale, fed.staleness_mode,
@@ -226,11 +233,23 @@ class AsyncFederatedSimulator(FederatedSimulator):
                                            np.float32)).to(self.device)
         stacked = T.tree_map(lambda *rows: _scale_rows(_stack(*rows), scales),
                              *[r.delta for r in buffer])
-        with self.telemetry.tracer.span("aggregate"):
+        drift = {} if tel.enabled else None
+        with tel.tracer.span("aggregate") as sp:
             self.params, self.server_state = self._server_half(stacked,
-                                                               n_ex)
+                                                               n_ex, drift)
+            if tel.enabled:
+                sp.sync = self.params
         self.version += 1
-        return float(np.mean([r.loss for r in buffer]))
+        loss = float(np.mean([r.loss for r in buffer]))
+        if tel.enabled:
+            names = sorted(drift)    # one host fetch a flush
+            vals = torch.stack([drift[k] for k in names]).tolist()
+            tel.record_round(self.version, {
+                **dict(zip(names, vals)), "loss": loss,
+                "staleness_mean": float(stale.mean()),
+                "staleness_max": float(stale.max()),
+            })
+        return loss
 
     # ------------------------------------------------------------------
     def run(self, rounds: Optional[int] = None, log_fn: Callable = None):

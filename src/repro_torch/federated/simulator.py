@@ -49,10 +49,11 @@ from repro_torch.core.selection import SELECTORS
 from repro_torch.core.strategies import get_strategy
 from repro_torch.data.partition import class_counts
 from repro_torch.device import resolve_device
+from repro_torch.federated import aggregation as A
 from repro_torch.federated.compression import GeneratorUniforms, UniformDraws
 from repro_torch.federated.protocol import RoundProtocol
 from repro_torch.models.vision import VISION_MODELS
-from repro_torch.telemetry import Telemetry
+from repro_torch.telemetry import Telemetry, round_metrics
 
 
 @dataclass
@@ -286,21 +287,37 @@ class FederatedSimulator:
                                    like=self.params)
         return protocol.aggregate(deltas, weights, like=self.params)
 
-    def _server_half(self, deltas, n_examples):
+    def _drift(self, deltas, mean_delta, efs=None):
+        """The round's drift diagnostics (``telemetry.round_metrics``) over
+        the deltas the server aggregates, against their Δ̄, with the
+        momentum broadcast this round (read before the server step) and,
+        when EF is on, the new residuals."""
+        return round_metrics(
+            deltas, mean_delta,
+            momentum=A.reference_direction(self.server_state),
+            efs=efs if self.ef_enabled else None)
+
+    def _server_half(self, deltas, n_examples, drift=None, efs=None):
         """The server's half of a round for the stateless-server
         strategies: weights, aggregate and the strategy's server step ->
         (params', server_state').  The async engine calls it once per
-        flush."""
-        return self.protocol.server_update(
-            self.server_state, self.params,
-            self._aggregate(deltas, n_examples))
+        flush.  Given a dict as ``drift`` (telemetry on), it also fills it
+        with the round's drift diagnostics (``efs``: the new EF
+        residuals)."""
+        mean_delta = self._aggregate(deltas, n_examples)
+        if drift is not None:
+            drift.update(self._drift(deltas, mean_delta, efs))
+        return self.protocol.server_update(self.server_state, self.params,
+                                           mean_delta)
 
     def _round(self, xb, yb, counts, cstates, n_examples, efs, keys, bcast):
-        """One round's device work: both halves.  ``keys`` = (uplink,
-        downlink) draws; ``bcast`` is the (params_w, ctx) wire of the delta
-        family computed through the ReferenceStore, or None to broadcast
-        inline."""
+        """One round's device work: both halves -> (params', server_state',
+        client states, EF residuals, mean loss, drift), the drift dict None
+        with telemetry off.  ``keys`` = (uplink, downlink) draws;
+        ``bcast`` is the (params_w, ctx) wire of the delta family computed
+        through the ReferenceStore, or None to broadcast inline."""
         strategy, fed, protocol = self.strategy, self.fed, self.protocol
+        drift = {} if self.telemetry.enabled else None
         up_key, down_key = keys
         if bcast is None:
             params_w, ctx, _ = protocol.client_ctx(
@@ -312,7 +329,11 @@ class FederatedSimulator:
             params_w, ctx, xb, yb, counts, cstates, efs, up_key)
         if fed.strategy == "feddyn":
             # FedDyn's server step reads no Δ̄ (the reference's jit drops
-            # the unused aggregate; here it is not computed)
+            # the unused aggregate; here it is computed only for the drift
+            # diagnostics)
+            if drift is not None:
+                drift.update(self._drift(
+                    deltas, self._aggregate(deltas, n_examples), new_efs))
             mean_theta_h = T.tree_map(lambda d: torch.mean(d, 0), theta_hs)
             sum_drift = T.tree_map(
                 lambda d: -torch.sum(d, 0) / self.n_clients, deltas)
@@ -320,6 +341,8 @@ class FederatedSimulator:
                 self.server_state, self.params, mean_theta_h, sum_drift, fed)
         elif fed.strategy == "scaffold":
             mean_delta = self._aggregate(deltas, n_examples)
+            if drift is not None:
+                drift.update(self._drift(deltas, mean_delta, new_efs))
             dcs = T.sub(ncs, cstates)
             mean_dc = T.tree_map(lambda d: torch.mean(d, 0), dcs)["c_i"]
             part_frac = xb.shape[0] / self.n_clients
@@ -327,8 +350,9 @@ class FederatedSimulator:
                 self.server_state, self.params, mean_delta, mean_dc, fed,
                 part_frac)
         else:
-            new_params, new_ss = self._server_half(deltas, n_examples)
-        return new_params, new_ss, ncs, new_efs, losses.mean()
+            new_params, new_ss = self._server_half(deltas, n_examples, drift,
+                                                   new_efs)
+        return new_params, new_ss, ncs, new_efs, losses.mean(), drift
 
     # ------------------------------------------------------------------
     def _client_batches(self, client: int, local_steps: Optional[int] = None):
@@ -401,10 +425,15 @@ class FederatedSimulator:
             # the lossless delta stays inline in the round; the unicast
             # layer still takes the wire once per round for the pages
             wire = self.refs.broadcast(t, compute_bcast)
-        with self.telemetry.tracer.span("round"):
-            (self.params, self.server_state, ncs, nefs,
-             loss) = self._round(xb, yb, counts, cstates, n_examples, efs,
-                                 keys, bcast)
+        tel = self.telemetry
+        with tel.tracer.span("round") as sp:
+            (self.params, self.server_state, ncs, nefs, loss,
+             drift) = self._round(xb, yb, counts, cstates, n_examples, efs,
+                                  keys, bcast)
+            if tel.enabled:
+                # the span stops after the round's work on the card, not
+                # after the launches
+                sp.sync = (self.params, loss)
         if self.stateful:
             self.protocol.store.scatter("state", picks, ncs)
         if self.ef_enabled:
@@ -414,6 +443,11 @@ class FederatedSimulator:
         self.refs.dispatch(picks, t, wire=wire)
         self._rounds_done += 1
         self.transport.account_uplink(len(picks))
+        if tel.enabled:
+            # one device-to-host transfer for the drift scalars and the loss
+            names = sorted(drift)     # the reference's key order
+            vals = torch.stack([drift[k] for k in names] + [loss]).tolist()
+            tel.record_round(t, {**dict(zip(names, vals)), "loss": vals[-1]})
         return loss
 
     def run(self, rounds: Optional[int] = None, log_fn: Callable = None):

@@ -9,6 +9,7 @@ per-request sampling).
 
 Run on the card:  PYTHONPATH=src python -m repro_torch.serve_demo
                       [--arch zamba2-1.2b] [--engine] [--device cpu]
+                      [--telemetry-jsonl out.jsonl]  (with --engine only)
 """
 from __future__ import annotations
 
@@ -23,12 +24,15 @@ from repro_torch.device import resolve_device
 from repro_torch.models.registry import get_model
 from repro_torch.serving import (SamplingParams, SchedulerConfig,
                                  ServingEngine, latency_summary)
+from repro_torch.telemetry import Telemetry
 
 
 def run_engine(cfg, args, device):
+    tel = Telemetry(jsonl=args.telemetry_jsonl, engine="serving") \
+        if args.telemetry_jsonl else None
     eng = ServingEngine(cfg, sched=SchedulerConfig(
         n_slots=args.batch, max_len=args.prompt_len + args.gen,
-        prefill_chunk=16), device=device)
+        prefill_chunk=16), telemetry=tel, device=device)
     rng = np.random.RandomState(0)
     t0 = time.time()
     for i in range(2 * args.batch):          # oversubscribe the slots
@@ -45,6 +49,9 @@ def run_engine(cfg, args, device):
           f"({toks / dt:.1f} tok/s, p50 e2e {lat['e2e_s']['p50']:.2f}s, "
           f"p50 TTFT {lat['ttft_s']['p50']:.2f}s); "
           f"sample row: {outs[0].tokens[:16]}")
+    if tel is not None:
+        tel.close()
+        print(f"telemetry events written to {args.telemetry_jsonl}")
     return outs
 
 
@@ -89,7 +96,13 @@ def main(argv=None):
                     help="continuous-batching ServingEngine path")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--telemetry-jsonl", default=None,
+                    help="(--engine only) enable serving telemetry and "
+                         "write events to this JSONL file")
     args = ap.parse_args(argv)
+    if args.telemetry_jsonl and not args.engine:
+        ap.error("--telemetry-jsonl needs the --engine path (the batch-"
+                 "synchronous demo has no serving telemetry)")
     device = resolve_device(args.device)
     cfg = get_arch(args.arch).reduced()
     if args.engine:

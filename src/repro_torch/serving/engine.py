@@ -111,6 +111,12 @@ class ServingEngine:
             with tel.tracer.span("decode_step"):
                 self._decode_all(dec, finished)
         self.n_steps += 1
+        if tel.enabled:
+            # the scheduler's gauges and the step counter: host ints
+            tel.counters.set("serving.queue_depth", len(self.scheduler.queue))
+            tel.counters.set("serving.slots_occupied",
+                             sum(r is not None for r in self.scheduler.slots))
+            tel.counters.inc("serving.steps")
         outs = [self._output(r) for r in finished]
         for o in outs:
             tel.record_request(o)

@@ -378,10 +378,3 @@ def test_deterministic_over_two_runs(data):
         h = e.run()
         runs.append((list(e.event_log), e.staleness_hist.to_dict(), list(h)))
     assert runs[0] == runs[1]
-
-
-def test_example_telemetry_flag_waits_for_the_telemetry_slice():
-    from repro_torch import async_straggler_example
-    with pytest.raises(NotImplementedError, match="telemetry slice"):
-        async_straggler_example.main(["--device", "cpu",
-                                      "--telemetry-jsonl", "x.jsonl"])

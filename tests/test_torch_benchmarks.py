@@ -19,7 +19,6 @@ Torch runs on one thread here: the drivers' tensors are tiny, and
 oversubscribed threads make them many times slower.
 """
 import dataclasses
-import hashlib
 import importlib
 import importlib.util
 import sys
@@ -36,14 +35,17 @@ ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+from _bench_stubs import digest, stub_comm  # noqa: E402
 from benchmarks import common as rcommon  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.benchmarks import common as pcommon  # noqa: E402
 
 FIGURES = ("fig1_acceleration", "fig2_robustness", "ablation_beta",
            "clustering", "table1_sota", "fig5_scale")
-UNPORTED = ("comm_sweep", "telemetry_bench", "lm_round", "roofline_report",
-            "kernels_bench")
+UNPORTED = ("lm_round", "roofline_report", "kernels_bench")
+# ported with the telemetry slice; their drivers are held to the
+# reference's in test_torch_comm_sweep.py
+TELEMETRY_DRIVERS = ("comm_sweep", "telemetry_bench")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -61,14 +63,6 @@ def modules(name):
 
 def names(rows):
     return [r.split(",")[0] for r in rows]
-
-
-def digest(*parts) -> str:
-    h = hashlib.sha256()
-    for p in parts:
-        h.update(p.tobytes() if isinstance(p, np.ndarray) else
-                 repr(p).encode())
-    return h.hexdigest()
 
 
 def stub_run_fl(calls, common, port):
@@ -152,6 +146,10 @@ def reference_rows(monkeypatch, tmp_path, ref_cnn, ref_comm_rows):
     out["serving_bench"] = names(rmod.main(
         [], out_json=str(tmp_path / "serving.json")))
     out["comm_load"] = names(ref_comm_rows)
+    for name in TELEMETRY_DRIVERS:
+        rmod = importlib.import_module(f"benchmarks.{name}")
+        stub_comm(monkeypatch, rmod, rcommon, False)
+        out[name] = names(rmod.main([], out_json=str(tmp_path / name)))
     return out
 
 
@@ -453,6 +451,23 @@ def test_run_only_an_unported_module_exits_non_zero(name, capsys):
     err = capsys.readouterr().err
     assert "not ported" in err and "Queue 1 item" in err
     assert name in run.__doc__ and name not in run.MODULES
+
+
+@pytest.mark.parametrize("name", TELEMETRY_DRIVERS)
+def test_run_only_a_telemetry_driver_runs_it(name, monkeypatch, tmp_path,
+                                             capsys):
+    """comm_sweep and telemetry_bench are run.py modules now: ``--only``
+    takes them by name, and their rows print (the training stubbed)."""
+    run = importlib.import_module("repro_torch.benchmarks.run")
+    pmod = importlib.import_module(f"repro_torch.benchmarks.{name}")
+    stub_comm(monkeypatch, pmod, pcommon, True)
+    monkeypatch.chdir(tmp_path)
+    assert name in run.MODULES and name not in run.UNPORTED
+    assert name in run.__doc__.split("Not ported yet")[0]
+    assert run.main(["--only", name, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"# {name} took" in out and "ERROR" not in out
+    assert (tmp_path / f"BENCH_{name.split('_')[0]}_torch.json").exists()
 
 
 def test_run_without_a_card_fails_instead_of_falling_back(monkeypatch):
