@@ -48,7 +48,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               them); flash attention in fp32 and
               bf16 at the reference sweep (MHA, GQA 2, MQA at D 128, L 192,
               windows 32/64/128), zamba2-1.2b's prefill (B 4, H 32, L 2048,
-              D 64) and Qwen3's GQA 32/8 at D 128, within 2e-5 / 2e-2 abs +
+              D 64), Qwen3's GQA 32/8 at D 128, and internvl2-26b's 48/8
+              and llama4-scout's 40/8 at L 2048, D 128 (GQA groups of 6
+              and 5), within 2e-5 / 2e-2 abs +
               rel (bf16 on the tensor cores, fp32 on the CUDA cores); the
               SSD scan (three kernels a call: chunk states, carry, outputs)
               at the reference sweep, ragged L 300 and L 1100, batch 1 at
@@ -198,7 +200,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               leaving the accuracy alone, every byte field equal to its
               prediction from the uploads, dispatches, catch-ups and
               resyncs and the wire sizes, the lossless downlink and
-              intermittent accuracies equal.
+              intermittent accuracies equal;
+14. archs   — the rest of the LM stack at full width, each model from seed
+              0 on the card and freed before the next, its peak memory
+              logged, TF32 off for the fp32 ones: (a) internvl2-26b whole
+              in bf16 (19,867,557,888 parameters), B 1 of 256 seeded patch
+              embeddings and 1,792 tokens: exactly 48 flash launches in the
+              kernel route's forward, none in the plain route's, last-
+              position logits within 5e-2 of max |logit|; (b) llama4-scout
+              at depth 4 (layers 0-2 windowed at 8192, layer 3 global;
+              10,877,383,680 parameters), B 2 x L 2048: exactly 1 flash
+              launch, both routes' (token, expert) assignments the same
+              (else each differing token's top-2 gap under 1e-5, and the
+              routes again dropless), logits within 1e-3, aux within
+              1e-5 relative; 16 decode steps at a dropless capacity (E /
+              top_k: 8.0 drops at these routers) against the forward of
+              their tokens (the reference's 2e-2); the ServingEngine, 4
+              slots, 8 requests of 32 tokens and 16 new, greedy; (c)
+              deepseek-v3 at depth 4 (three dense MLA layers, one of 256
+              experts top-8; 15,111,101,440 parameters), a B 1 x L 1024
+              prefill with no flash launch, then 16 absorbed-MLA decode
+              steps against the dropless forward of their tokens (2e-2);
+              (d) whisper-small, 1500 seeded frames and
+              64 tokens, card against CPU within 1e-3 of max |logit|, 16
+              decode steps after prefill_cross against the forward (2e-2);
+              (e) xlstm-350m, B 1 x L 512, card against CPU within 1e-3, the
+              sLSTM loops' share of the forward; 32 decode steps card
+              against CPU (1e-3) and, on the mLSTM blocks 0-2, against the
+              forward (2e-2): the sLSTM's norm spans the forward's whole
+              sequence (the reference's), so the whole model's decode is
+              not the forward's prefix, which is logged.
 
 Every time is measured here, on the card named in the output.  Bounds use
 the H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s of fp32 outside the
@@ -1273,7 +1304,10 @@ FLASH_SHAPES = [(1, 2, 2, 128, 64, 0), (2, 4, 2, 256, 64, 0),
                 (1, 8, 1, 128, 128, 0), (1, 4, 4, 192, 64, 0),
                 (1, 2, 2, 256, 64, 32), (1, 2, 2, 256, 64, 64),
                 (1, 2, 2, 256, 64, 128), (4, 32, 32, 2048, 64, 0),
-                (1, 32, 8, 1024, 128, 0)]
+                (1, 32, 8, 1024, 128, 0),
+                # phase 14's heads: internvl2-26b (48 over 8, a group of
+                # 6) and llama4-scout (40 over 8, a group of 5)
+                (1, 48, 8, 2048, 128, 0), (2, 40, 8, 2048, 128, 0)]
 # SSD (b, L, H, P, N, chunk) — the reference sweep (:78-93), ragged lengths
 # (L 300; L 1100, five chunks), batch 1 at L 4096 (the carry crosses 16
 # chunks), P 12 and N 10 (the kernels' element-by-element copies) and
@@ -1548,16 +1582,16 @@ def check_tokens(tag, got, want, ref_logits, bound):
     return ties
 
 
-def counted_forward(ops, fn, n_mamba, n_attn, totals):
+def counted_forward(ops, fn, n_mamba, n_attn, totals, tag="serve"):
     """Run one kernel-route forward with the counts set to 0 just before
     and read just after: exactly one ssd_scan per Mamba2 block and one
-    flash_attention per shared-attention block."""
+    flash_attention per attention block that takes the kernel."""
     ops.reset_launch_counts()
     out = fn()
     got = ops.launch_counts()
     if (got["ssd_scan"], got["flash_attention"]) != (n_mamba, n_attn) or \
             sum(got.values()) != n_mamba + n_attn:
-        raise AssertionError(f"serve: one forward launched {got}, expected "
+        raise AssertionError(f"{tag}: one forward launched {got}, expected "
                              f"{n_mamba} ssd_scan and {n_attn} "
                              f"flash_attention")
     for k in ("ssd_scan", "flash_attention"):
@@ -2894,6 +2928,368 @@ def _telemetry_phase(torch, data, tmp):
                              "lossless accuracies are wrong")
 
 
+# -- phase 14: the rest of the LM stack at full width -----------------------
+INTERNVL, SCOUT, DEEPSEEK = ("internvl2-26b", "llama4-scout-17b-a16e",
+                             "deepseek-v3-671b")
+WHISPER, XLSTM = "whisper-small", "xlstm-350m"
+ARCH_DEPTH = {SCOUT: 4, DEEPSEEK: 4}    # one card holds neither MoE whole
+
+
+def arch_config(name):
+    """The full-width config phase 14 runs: the two MoE models cut in
+    depth (Scout to one period of its 3 windowed : 1 global interleave,
+    DeepSeek-V3 to its three dense MLA layers and one MoE layer)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch(name)
+    return replace(cfg, n_layers=ARCH_DEPTH[name]) if name in ARCH_DEPTH \
+        else cfg
+
+
+def dropless(cfg):
+    """The smallest capacity factor at which no assignment can drop: an
+    expert's cap = T·k·cf / E slots then hold all T tokens.  The reference's
+    8.0 is dropless at its test's 4 experts top-2, not at Scout's 16 top-1
+    or DeepSeek-V3's 256 top-8, whose random routers send most tokens to
+    a few experts."""
+    from dataclasses import replace
+    m = cfg.moe
+    return replace(cfg, moe=replace(m, capacity_factor=m.n_experts / m.top_k))
+
+
+class RouteLog:
+    """Records every routing call while on: each (token, choice)
+    assignment's expert, which were kept, and each token's gap between its
+    k-th and (k+1)-th router probabilities (top-1: its two highest)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import layers as L
+        from repro_torch.models import moe as MOE
+        self.torch, self.L, self.MOE, self.calls = torch, L, MOE, []
+
+    def __enter__(self):
+        route = self.route = self.MOE.route
+
+        def recording(p, xt, cfg):
+            out = route(p, xt, cfg)
+            k = cfg.moe.top_k
+            probs = self.torch.softmax(self.L.linear(p["router"], xt.float()),
+                                       -1)
+            top = probs.topk(k + 1, dim=-1).values
+            self.calls.append({"e": out[0], "keep": out[3],
+                               "gap": top[:, k - 1] - top[:, k]})
+            return out
+        self.MOE.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.MOE.route = self.route
+
+
+def route_flips(a, b, top_k):
+    """(layer, token, gap) of each token whose assignments differ between
+    two RouteLogs of the same forward."""
+    flips = []
+    for layer, (ca, cb) in enumerate(zip(a.calls, b.calls)):
+        diff = (ca["e"] != cb["e"]).reshape(-1, top_k).any(-1)
+        for tok in diff.nonzero().flatten().tolist():
+            flips.append((layer, tok, ca["gap"][tok].item()))
+    return flips
+
+
+def decode_against(torch, model, p, cfg, toks, full, steps, tag, cache=None):
+    """``steps`` decode steps from position 0 against the forward's logits
+    ``full`` (B, >= steps, V) at the reference's bar (atol 2e-2 + rtol
+    2e-2, tests/test_archs_smoke.py) -> (decode logits (B, steps, V), the
+    largest excess over the bar)."""
+    if cache is None:
+        cache = model.init_cache(cfg, toks.shape[0], steps, torch.float32,
+                                 device=toks.device)
+    outs = []
+    for t in range(steps):
+        lg, cache = model.decode_step(p, cache, toks[:, t:t + 1], t, cfg)
+        outs.append(lg.float())
+    dec = torch.stack(outs, 1)
+    want = full[:, :steps].float()
+    excess = ((dec - want).abs() - 2e-2 - 2e-2 * want.abs()).max().item()
+    log(f"{tag}: {steps} decode steps against the forward: max |decode - "
+        f"forward| = {(dec - full[:, :steps]).abs().max().item()}, excess "
+        f"over 2e-2 abs + rel {excess}")
+    return dec, excess
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def loaded(torch, name, cfg, count_params, dtype=None):
+    """Initialise ``cfg`` on the card from seed 0 with the peak reset."""
+    from repro_torch.models.registry import get_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg)
+    kw = {} if dtype is None else {"dtype": dtype}
+    p, s = timed(torch, lambda: model.init(0, cfg, device="cuda", **kw))
+    log(f"archs {name}: {cfg.n_layers} layers, {count_params(cfg)} "
+        f"parameters, {str(dtype or torch.float32)[6:]}, init on the card "
+        f"in {s:.2f}s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    return model, p
+
+
+def peak(torch):
+    return f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+
+
+def rel_last(got, want):
+    scale = want.abs().max().item()
+    return (got - want).abs().max().item() / scale, scale
+
+
+def archs_phase(torch, np):
+    """(a) internvl2-26b whole in bf16, (b) llama4-scout at depth 4, (c)
+    deepseek-v3 at depth 4, (d) whisper-small, (e) xlstm-350m, each at full
+    width from seed 0 -> the flash launches of the kernel-route forwards."""
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec as E
+    from repro_torch.models import xlstm as XL
+    from repro_torch.models.registry import count_params
+    from repro_torch.models.transformer import VIS_EMBED_DIM
+    from repro_torch.serving import (SchedulerConfig, ServingEngine,
+                                     latency_summary)
+    totals = {"ssd_scan": 0, "flash_attention": 0}
+
+    def routes(tag, model, p, cfg, batch, n_flash, bar):
+        """The kernel route (counted) and the plain route, each run twice
+        and timed the second time: last-position logits, aux loss, seconds,
+        and each route's RouteLog."""
+        def kernel_route():
+            return counted_forward(ops, lambda: model.forward(
+                p, batch, cfg, True, logits_slice="last"), 0, n_flash,
+                totals, tag)
+
+        def plain_route():
+            ops.reset_launch_counts()
+            out = model.forward(p, batch, cfg, False, logits_slice="last")
+            if any(ops.launch_counts().values()):
+                raise AssertionError(f"{tag}: the plain route launched "
+                                     f"{ops.launch_counts()}")
+            return out
+        kernel_route()
+        with RouteLog(torch) as rk:
+            (lk, ak), sk = timed(torch, kernel_route)
+        plain_route()
+        with RouteLog(torch) as rp:
+            (lp, ap), sp = timed(torch, plain_route)
+        lk, lp = lk[:, -1].float(), lp[:, -1].float()
+        if not (torch.isfinite(lk).all() and lk.shape == lp.shape):
+            raise AssertionError(f"{tag}: bad logits {lk.shape}")
+        err, scale = rel_last(lk, lp)
+        log(f"{tag}: kernel route {sk:.3f}s ({n_flash} flash launches), "
+            f"plain route {sp:.3f}s; last-position logits max |kernel - "
+            f"plain| = {err} of max |logit| {scale} (bar {bar}); aux "
+            f"{float(ak)} / {float(ap)}; {peak(torch)}")
+        return err, float(ak), float(ap), rk, rp
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+    # (a) internvl2-26b, whole, bf16: the VLM prefix and 48 flash launches
+    cfg = arch_config(INTERNVL)
+    model, p = loaded(torch, INTERNVL, cfg, count_params, torch.bfloat16)
+    rng = np.random.RandomState(0)
+    n_txt = 2048 - cfg.n_patch_tokens
+    batch = {"tokens": torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (1, n_txt))).cuda(),
+        "patch_embeds": torch.from_numpy(rng.randn(
+            1, cfg.n_patch_tokens, VIS_EMBED_DIM).astype(np.float32)).cuda()}
+    err = routes(f"archs (a) {INTERNVL} bf16 B 1 L {cfg.n_patch_tokens} + "
+                 f"{n_txt}", model, p, cfg, batch, cfg.n_layers, 5e-2)[0]
+    if not err <= 5e-2:
+        raise AssertionError("archs (a): the routes' logits differ")
+    del p, batch
+
+    # the fp32 models: TF32 off
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # (b) llama4-scout, depth 4: layers 0-2 windowed (masked route), 3 global
+    cfg = arch_config(SCOUT)
+    model, p = loaded(torch, SCOUT, cfg, count_params)
+    n_global = sum(not cfg.layer_uses_window(i) for i in range(cfg.n_layers))
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 2048))).cuda()
+    tag = f"archs (b) {SCOUT} depth {cfg.n_layers} B 2 L 2048"
+    err, ak, ap, rk, rp = routes(tag, model, p, cfg, {"tokens": toks},
+                                 n_global, 1e-3)
+    flips = route_flips(rk, rp, cfg.moe.top_k)
+    drops = sum((~c["keep"]).sum().item() for c in rk.calls)
+    log(f"{tag}: {drops} assignments dropped at capacity "
+        f"{cfg.moe.capacity_factor}; {len(flips)} tokens assigned "
+        f"differently by the two routes {flips[:8]}")
+    if flips:
+        if not all(gap < 1e-5 for _, _, gap in flips):
+            raise AssertionError(f"{tag}: routes part above a near-tie")
+        err, ak, ap, rk, rp = routes(tag + " dropless", model, p,
+                                     dropless(cfg), {"tokens": toks},
+                                     n_global, 1e-3)
+        log(f"{tag} dropless: {len(route_flips(rk, rp, 1))} tokens "
+            f"assigned differently")
+    if not (err <= 1e-3 and abs(ak - ap) <= 1e-5 * abs(ap)):
+        raise AssertionError(f"{tag}: the routes' logits or aux differ")
+    cfg_d = dropless(cfg)
+    t16 = toks[:1, :16]
+    with RouteLog(torch) as rl:
+        full = model.forward(p, {"tokens": t16}, cfg_d)[0]
+    if not all(c["keep"].all() for c in rl.calls):
+        raise AssertionError(f"{tag}: the dropless capacity dropped")
+    if decode_against(torch, model, p, cfg_d, t16, full, 16,
+                      f"archs (b) {SCOUT} capacity "
+                      f"{cfg_d.moe.capacity_factor}")[1] > 0:
+        raise AssertionError("archs (b): decode departs from the forward")
+    del full
+    eng = ServingEngine(cfg, p, SchedulerConfig(n_slots=4, max_len=48,
+                                                prefill_chunk=16),
+                        device="cuda")
+    rng = np.random.RandomState(2)
+    for _ in range(8):
+        eng.add_request(rng.randint(0, cfg.vocab_size, 32).tolist(), 16)
+    outs, wall = timed(torch, eng.run)
+    n_tok = sum(len(o.tokens) for o in outs)
+    lat = latency_summary(outs)
+    log(f"archs (b) {SCOUT} engine: {len(outs)} requests on 4 slots, "
+        f"capacity {cfg.moe.capacity_factor}, {n_tok} tokens in {wall:.3f}s "
+        f"({n_tok / wall:.2f} tok/s), {eng.n_steps} engine steps; TTFT p50 "
+        f"{lat['ttft_s']['p50']}s, e2e p50 {lat['e2e_s']['p50']}s; "
+        f"{peak(torch)}")
+    if len(outs) != 8 or any(len(o.tokens) != 16 for o in outs):
+        raise AssertionError("archs (b): engine requests unfinished")
+    del p, eng, outs, toks
+
+    # (c) deepseek-v3, depth 4: MLA (never the kernel) and 256 experts
+    cfg = arch_config(DEEPSEEK)
+    model, p = loaded(torch, DEEPSEEK, cfg, count_params)
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (1, 1024))).cuda()
+    tag = f"archs (c) {DEEPSEEK} depth {cfg.n_layers} B 1 L 1024"
+
+    def prefill():
+        return counted_forward(ops, lambda: model.forward(
+            p, {"tokens": toks}, cfg, True, logits_slice="last"), 0, 0,
+            totals, tag)
+    prefill()
+    with RouteLog(torch) as rl:
+        (last, aux), s = timed(torch, prefill)
+    drops = sum((~c["keep"]).sum().item() for c in rl.calls)
+    if not torch.isfinite(last).all():
+        raise AssertionError(f"{tag}: non-finite logits")
+    log(f"{tag}: prefill (use_pallas=True, 0 flash launches) {s:.3f}s, aux "
+        f"{float(aux)}, {drops} assignments dropped at capacity "
+        f"{cfg.moe.capacity_factor}; {peak(torch)}")
+    # decode against the forward of its 16 tokens, both dropless
+    cfg_d = dropless(cfg)
+    with RouteLog(torch) as rl:
+        full = model.forward(p, {"tokens": toks[:, :16]}, cfg_d)[0]
+    if not all(c["keep"].all() for c in rl.calls):
+        raise AssertionError(f"{tag}: the dropless capacity dropped")
+    if decode_against(torch, model, p, cfg_d, toks, full, 16,
+                      f"archs (c) {DEEPSEEK} absorbed MLA, capacity "
+                      f"{cfg_d.moe.capacity_factor}")[1] > 0:
+        raise AssertionError("archs (c): decode departs from the forward")
+    del p, full, toks, last
+
+    # (d) whisper-small: encoder 1500 frames, decoder 64 tokens
+    cfg = arch_config(WHISPER)
+    model, p = loaded(torch, WHISPER, cfg, count_params)
+    p_cpu = T.tree_map(lambda t: t.cpu(), p)
+    rng = np.random.RandomState(4)
+    frames = torch.from_numpy(rng.randn(1, 1500, cfg.d_model).astype(
+        np.float32))
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 64)))
+    card, s = timed(torch, lambda: model.forward(
+        p, {"frames": frames.cuda(), "tokens": toks.cuda()}, cfg)[0])
+    t0 = time.perf_counter()
+    cpu = model.forward(p_cpu, {"frames": frames, "tokens": toks}, cfg)[0]
+    err, scale = rel_last(card.float().cpu(), cpu)
+    log(f"archs (d) {WHISPER} B 1, 1500 frames, 64 tokens: forward "
+        f"{s:.3f}s on the card ({time.perf_counter() - t0:.1f}s on the "
+        f"CPU); max |logit card - cpu| = {err} of max |logit| {scale} (bar "
+        f"1e-3); {peak(torch)}")
+    if not err <= 1e-3:
+        raise AssertionError("archs (d): card and CPU disagree")
+    cache = model.init_cache(cfg, 1, 1500, torch.float32, device="cuda")
+    cache = E.prefill_cross(p, E.encode(p, frames.cuda(), cfg), cfg, cache)
+    if decode_against(torch, model, p, cfg, toks.cuda(), card, 16,
+                      f"archs (d) {WHISPER} after prefill_cross",
+                      cache=cache)[1] > 0:
+        raise AssertionError("archs (d): decode departs from the forward")
+    del p, p_cpu, cache, card
+
+    # (e) xlstm-350m: 18 mLSTM and 6 sLSTM blocks
+    cfg = arch_config(XLSTM)
+    model, p = loaded(torch, XLSTM, cfg, count_params)
+    p_cpu = T.tree_map(lambda t: t.cpu(), p)
+    toks = torch.from_numpy(np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (1, 512)))
+    slstm_s = []
+    slstm = XL.slstm_forward
+
+    def timed_slstm(*a):
+        out, s = timed(torch, lambda: slstm(*a))
+        slstm_s.append(s)
+        return out
+    XL.slstm_forward = timed_slstm
+    try:
+        card, s = timed(torch, lambda: model.forward(
+            p, {"tokens": toks.cuda()}, cfg)[0])
+    finally:
+        XL.slstm_forward = slstm
+    cpu = model.forward(p_cpu, {"tokens": toks}, cfg)[0]
+    err, scale = rel_last(card.float().cpu(), cpu)
+    log(f"archs (e) {XLSTM} B 1 L 512: forward {s:.3f}s on the card, the "
+        f"{len(slstm_s)} sLSTM blocks' loops {sum(slstm_s):.3f}s of it "
+        f"({sum(slstm_s) / s:.3f}); max |logit card - cpu| = {err} of max "
+        f"|logit| {scale} (bar 1e-3); {peak(torch)}")
+    if not err <= 1e-3:
+        raise AssertionError("archs (e): card and CPU disagree")
+    t32 = toks[:, :32]
+    full = model.forward(p, {"tokens": t32.cuda()}, cfg)[0]
+    dec, gap = decode_against(torch, model, p, cfg, t32.cuda(), full, 32,
+                              f"archs (e) {XLSTM} whole (sLSTM norm spans the "
+                              f"forward's sequence)")
+    cpu_full = model.forward(p_cpu, {"tokens": t32}, cfg)[0]
+    cpu_dec, cpu_gap = decode_against(torch, model, p_cpu, cfg, t32,
+                                      cpu_full, 32, f"archs (e) {XLSTM} "
+                                      f"whole on the CPU")
+    err, scale = rel_last(dec.cpu(), cpu_dec)
+    log(f"archs (e): decode card vs CPU max |logit| diff {err} of {scale} "
+        f"(bar 1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError("archs (e): card and CPU decode disagree")
+    # the mLSTM prefix (blocks 0-2, one run): causal, so decode is the
+    # forward's prefix
+    from dataclasses import replace
+    head = replace(cfg, n_layers=3, block_pattern=cfg.block_pattern[:3])
+    ph = {"embed": p["embed"], "runs": {"0": p["runs"]["0"]},
+          "final_norm": p["final_norm"]}
+    full = model.forward(ph, {"tokens": t32.cuda()}, head)[0]
+    if decode_against(torch, model, ph, head, t32.cuda(), full, 32,
+                      f"archs (e) {XLSTM} mLSTM blocks 0-2")[1] > 0:
+        raise AssertionError("archs (e): decode departs from the forward")
+    del p, p_cpu, ph, full, card
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+    log(f"archs: kernel launches of the kernel-route forwards {totals}")
+    return totals
+
+
 def main():
     import numpy as np
     import torch
@@ -3516,14 +3912,21 @@ def main():
     log(f"telemetry: launches over the phase {launch_diff(ops, before)}; "
         f"{time.perf_counter() - t0:.1f}s")
 
+    # -- 14. the rest of the LM stack at full width ---------------------------
+    t0 = time.perf_counter()
+    arch_launches = archs_phase(torch, np)
+    log(f"archs: {time.perf_counter() - t0:.1f}s")
+
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     # launches: the update kernels' from the main path (phase 3), the wire
     # kernels' from the wire phase (4), the KD kernels' from FedADC+ (5),
-    # flash attention's and the SSD scan's from the serve phase (9)
+    # flash attention's and the SSD scan's from the serve phase (9) and the
+    # archs phase (14)
     launches.update(wire_launches)
     launches.update({n: distill_launches[n] for n in ("kd_loss",
                                                       "kd_loss_bwd")})
-    launches.update(serve_launches)
+    launches.update({n: serve_launches[n] + arch_launches[n]
+                     for n in serve_launches})
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": TPU_KERNEL[name], "launches": launches[name],

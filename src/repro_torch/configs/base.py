@@ -6,8 +6,8 @@ fleet's ``HeteroConfig`` (``:297-325``), with every field, so configs are
 built the same way for both packages.
 
 ``FedConfig.use_pallas`` is kept for parity only: on a CUDA tensor the
-engines always run their kernels.  The LM stack supports the block kinds ``ATTN``, ``SHARED_ATTN`` and ``MAMBA2``
-(``repro_torch.models.transformer`` raises on the rest).
+engines always run their kernels.  The LM stack builds every block kind
+and every architecture of ``configs/``.
 """
 from __future__ import annotations
 

@@ -11,8 +11,10 @@ the same key paths with tensors.  Layouts:
 * linear ``w``: ``(d_in, d_out)`` on both sides (``x @ w + b``), unchanged;
 * every other leaf is unchanged: biases and norms, and the LM trees as
   they are — nested ``runs`` dicts whose leaves carry a leading layer axis,
-  the Mamba2 ``conv_w`` (d_conv, channels), ``A_log``, ``D``, ``dt_bias``
-  and the tied embedding.
+  the Mamba2 and mLSTM ``conv_w`` (d_conv, channels), ``A_log``, ``D``,
+  ``dt_bias``, the MoE experts' 4-d ``gate``/``up``/``down``, the sLSTM's
+  ``r``, ``vis_proj``, the encoder-decoder's ``enc``/``dec`` and the tied
+  embedding.
 
 Both directions go through numpy, so neither package imports the other.
 """

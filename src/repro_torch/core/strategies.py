@@ -34,6 +34,7 @@ XLA.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict
 
 import torch
@@ -41,6 +42,20 @@ import torch
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import tree as T
 from repro_torch.kernels import ops
+
+
+# hooks that have fired their deprecation warning in this process, by name,
+# so a shim warns once, not once per call
+_DEPRECATION_WARNED: set = set()
+
+
+def _warn_deprecated(hook: str, replacement: str) -> None:
+    if hook in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(hook)
+    warnings.warn(f"{hook} is deprecated; use {replacement} "
+                  f"(DESIGN.md §Transport migration table)",
+                  DeprecationWarning, stacklevel=3)
 
 
 def _maybe_clip(g, fed: FedConfig):
@@ -79,6 +94,16 @@ class FedAvg:
     def local_step(self, theta, ctx, grad_fn, batch, fed, extra):
         g, aux = grad_fn(theta, batch)
         return _sgd_step(theta, g, fed.eta, fed), extra, aux
+
+    def compress_delta(self, delta, ef, key, fed):
+        """Deprecated: the uplink moved off the strategy into the wire
+        layer (``Transport.uplink``, which the engines drive through
+        ``RoundProtocol.uplink``).  Warns once per process, then delegates
+        to a cached stateless ``Transport`` (``shim_transport``)."""
+        _warn_deprecated("strategy.compress_delta",
+                         "RoundProtocol.uplink / Transport.uplink")
+        from repro_torch.federated.transport import shim_transport  # layering
+        return shim_transport(fed).uplink(delta, ef, key)
 
     def server_aggregate(self, deltas, weights, fed):
         """Δ̄ = Σ_i w_i·Δ_i / Σ_i w_i over client-stacked deltas."""

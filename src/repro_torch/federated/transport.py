@@ -24,8 +24,7 @@ broadcast is given a leading axis of 1 for the codec and loses it after.
 ``key`` is the call's ``UniformDraws`` (``compression.py``), which the
 lossy codecs draw from; lossless codecs ignore it.
 
-Not ported: the deprecated ``strategy.compress_delta`` shim and its
-``shim_transport``.
+``shim_transport`` backs the deprecated ``strategy.compress_delta``.
 """
 from __future__ import annotations
 
@@ -414,6 +413,34 @@ class Transport:
     def downlink_wire_nbytes(self, template) -> int:
         return (C.raw_nbytes(template) if self.down is None
                 else self.down.wire_nbytes(template))
+
+
+@functools.lru_cache(maxsize=None)
+def _shim_transport(compressor: str, topk_frac: float, qsgd_bits: int,
+                    error_feedback: bool, sparse_uplink: bool,
+                    use_pallas: bool) -> Transport:
+    from repro_torch.configs.base import FedConfig  # layering
+    return Transport(FedConfig(
+        compressor=compressor, topk_frac=topk_frac, qsgd_bits=qsgd_bits,
+        error_feedback=error_feedback, sparse_uplink=sparse_uplink,
+        use_pallas=use_pallas))
+
+
+def shim_transport(fed) -> Transport:
+    """The stateless cached instance behind the deprecated
+    ``strategy.compress_delta`` (its counters unused there).  It is keyed
+    on the uplink's fields only, not on the whole config, so a sweep over
+    ``eta`` shares one instance; the config must be frozen, so those
+    fields cannot change after the codec was built."""
+    params = getattr(type(fed), "__dataclass_params__", None)
+    if params is None or not params.frozen:
+        raise TypeError(
+            f"shim_transport needs a frozen config (got "
+            f"{type(fed).__name__}): a mutable config could change its "
+            f"wire knobs after the cached codec was built")
+    return _shim_transport(fed.compressor, fed.topk_frac, fed.qsgd_bits,
+                           fed.error_feedback, fed.sparse_uplink,
+                           fed.use_pallas)
 
 
 def downlink_nbytes(fed, params, ctx) -> int:

@@ -18,7 +18,20 @@ import torch
 import torch.nn.functional as F
 
 
+# a leaf of more elements than this, kept in a narrower dtype than fp32, is
+# drawn in fp32 one slice of its leading axis at a time, so its init peaks
+# near its own bytes rather than at twice its fp32 size
+SLICED_DRAW = 1 << 26
+
+
 def uniform(gen, shape, scale, dtype=torch.float32, device=None):
+    if dtype != torch.float32 and math.prod(shape) > SLICED_DRAW \
+            and len(shape) > 1 and str(device) != "meta":
+        t = torch.empty(shape, dtype=dtype, device=device)
+        for part in t:
+            part.copy_(torch.empty(part.shape, device=device).uniform_(
+                -scale, scale, generator=gen))
+        return t
     t = torch.empty(shape, dtype=torch.float32, device=device)
     if t.device.type != "meta":
         t.uniform_(-scale, scale, generator=gen)
@@ -30,6 +43,16 @@ def normal(gen, shape, std, dtype=torch.float32, device=None):
     if t.device.type != "meta":
         t.normal_(0.0, std, generator=gen)
     return t.to(dtype)
+
+
+def dense_init(gen, shape, in_axis=-2, dtype=torch.float32, device=None,
+               lead=()):
+    """Uniform ±1/√fan_in over ``shape`` (the reference's ``_dense_init``,
+    ``layers.py:13-17``), with fan_in ``shape[in_axis]`` of the unstacked
+    shape (the MoE experts take ``in_axis=1``)."""
+    fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
+    return uniform(gen, (*lead, *shape), 1.0 / math.sqrt(max(fan_in, 1)),
+                   dtype, device)
 
 
 def linear_init(gen, d_in, d_out, bias=False, dtype=torch.float32,
@@ -68,9 +91,23 @@ def rmsnorm(p, x, eps=1e-5):
     return (x * p["scale"].float()).to(dt)
 
 
-def groupnorm_init(dim, dtype=torch.float32, device=None):
-    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
-            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+def layernorm_init(dim, dtype=torch.float32, device=None, lead=()):
+    return {"scale": torch.ones((*lead, dim), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, dim), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps=1e-5):
+    """Statistics in fp32, one cast on write."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(dt)
+
+
+def groupnorm_init(dim, dtype=torch.float32, device=None, lead=()):
+    return layernorm_init(dim, dtype, device, lead)
 
 
 def groupnorm(p, x, groups=32, eps=1e-5):
@@ -128,3 +165,16 @@ def mlp_init(gen, d_model, d_ff, dtype=torch.float32, device=None, lead=()):
 
 def mlp(p, x):
     return linear(p["down"], F.silu(linear(p["gate"], x)) * linear(p["up"], x))
+
+
+def gelu_mlp_init(gen, d_model, d_ff, dtype=torch.float32, device=None,
+                  lead=()):
+    return {"fc1": linear_init(gen, d_model, d_ff, bias=True, dtype=dtype,
+                               device=device, lead=lead),
+            "fc2": linear_init(gen, d_ff, d_model, bias=True, dtype=dtype,
+                               device=device, lead=lead)}
+
+
+def gelu_mlp(p, x):
+    # jax.nn.gelu defaults to the tanh approximation; F.gelu to the erf form
+    return linear(p["fc2"], F.gelu(linear(p["fc1"], x), approximate="tanh"))

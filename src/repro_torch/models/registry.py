@@ -8,24 +8,23 @@ from types import SimpleNamespace
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import leaves, tree_map_with_path
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def get_model(cfg: ModelConfig) -> SimpleNamespace:
-    """Raises ``NotImplementedError`` for what the port cannot build yet
-    (encoder-decoder models, MoE, xLSTM, MLA, the VLM prefix)."""
-    transformer.check_supported(cfg)
-    return SimpleNamespace(init=transformer.init, forward=transformer.forward,
-                           loss_fn=transformer.loss_fn,
-                           init_cache=transformer.init_cache,
-                           decode_step=transformer.decode_step)
+    """The encoder-decoder module for Whisper-style configs, the
+    decoder-only stack for every other."""
+    mod = encdec if cfg.is_encoder_decoder else transformer
+    return SimpleNamespace(init=mod.init, forward=mod.forward,
+                           loss_fn=mod.loss_fn, init_cache=mod.init_cache,
+                           decode_step=mod.decode_step)
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """The parameter count from an init on the ``meta`` device: shapes
-    only, nothing allocated.  ``active_only`` counts the routed experts
-    at top_k / n_experts, as the reference does; this stack builds no
-    experts, so for what it builds the two counts agree."""
+    only, nothing allocated.  ``active_only`` counts each routed-expert
+    leaf at top_k / n_experts (integer division a leaf), as the reference
+    does; the router and the shared expert count in full."""
     def size(path, t):
         n = math.prod(t.shape)
         if active_only and cfg.moe is not None and "experts" in path:

@@ -1,6 +1,8 @@
 """Decoder-only stack assembler (counterpart of the JAX package's
-``models/transformer.py``) for the block kinds ``ATTN``, ``SHARED_ATTN``
-and ``MAMBA2``: dense GQA transformers and Zamba2-style hybrids.
+``models/transformer.py``) for every block kind: dense attention (GQA or
+MLA), MoE (attention and a routed FFN), Mamba2, the xLSTM's mLSTM and
+sLSTM, and Zamba2-style shared attention; with the VLM's patch prefix
+(precomputed patch embeddings through ``vis_proj`` ahead of the tokens).
 
 Consecutive blocks of one kind and window form a run whose parameters are
 stacked along a leading layer axis, as the reference stacks them for its
@@ -19,32 +21,17 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from repro_torch.configs.base import (ATTN, MAMBA2, MOE, SHARED_ATTN,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, MAMBA2, MLSTM, MOE, SHARED_ATTN,
+                                      SLSTM, ModelConfig)
 from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE_MOD
+from repro_torch.models import xlstm as XL
 
-# what the rest of the LM stack (MoE, xLSTM, MLA, the VLM prefix and
-# encoder-decoder models) brings, and where
-LATER = "comes with port slice 7, the rest of the LM stack"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` on what this stack does not build."""
-    missing = sorted({k for k in cfg.blocks()
-                      if k not in (ATTN, SHARED_ATTN, MAMBA2)})
-    if cfg.moe is not None and not missing:
-        missing = [MOE]
-    what = (f"block kinds {missing}" if missing
-            else "MLA attention" if cfg.mla is not None
-            else "the VLM patch prefix" if cfg.n_patch_tokens > 0
-            else "encoder-decoder models" if cfg.is_encoder_decoder
-            else None)
-    if what is not None:
-        raise NotImplementedError(f"{cfg.arch_id}: {what} {LATER}")
+VIS_EMBED_DIM = 1024   # the stub vision tower's output width (InternViT)
 
 
 # ---------------------------------------------------------------------------
@@ -76,18 +63,27 @@ def layer(stacked, i: int):
 # Per-block init / apply
 # ---------------------------------------------------------------------------
 def _block_init(kind: str, gen, cfg: ModelConfig, dtype, device, lead=()):
-    if kind in (ATTN, SHARED_ATTN):
-        d_ff = cfg.d_ff if cfg.d_ff > 0 else 4 * cfg.d_model
-        return {"ln1": L.rmsnorm_init(cfg.d_model, dtype, device, lead),
-                "ln2": L.rmsnorm_init(cfg.d_model, dtype, device, lead),
-                "attn": A.gqa_init(gen, cfg, dtype, device, lead),
-                "mlp": L.mlp_init(gen, cfg.d_model, d_ff, dtype, device,
-                                  lead)}
+    if kind in (ATTN, SHARED_ATTN, MOE):
+        p = {"ln1": L.rmsnorm_init(cfg.d_model, dtype, device, lead),
+             "ln2": L.rmsnorm_init(cfg.d_model, dtype, device, lead)}
+        p["attn"] = (A.mla_init if cfg.mla is not None else A.gqa_init)(
+            gen, cfg, dtype, device, lead)
+        if kind == MOE:
+            p["moe"] = MOE_MOD.moe_init(gen, cfg, dtype, device, lead)
+        else:
+            d_ff = cfg.d_ff if cfg.d_ff > 0 else 4 * cfg.d_model
+            p["mlp"] = L.mlp_init(gen, cfg.d_model, d_ff, dtype, device,
+                                  lead)
+        return p
+    mix = {MAMBA2: M2.mamba2_init, MLSTM: XL.mlstm_init,
+           SLSTM: XL.slstm_init}[kind]
     return {"ln": L.rmsnorm_init(cfg.d_model, dtype, device, lead),
-            "mix": M2.mamba2_init(gen, cfg, dtype, device, lead)}
+            "mix": mix(gen, cfg, dtype, device, lead)}
 
 
 def _attn_fwd(p, x, cfg, window, use_pallas):
+    if cfg.mla is not None:
+        return A.mla_forward(p, x, cfg, use_pallas=use_pallas)
     B, Lq, _ = x.shape
     positions = torch.arange(Lq, device=x.device)[None, :]
     q, k, v = A._gqa_qkv(p, x, cfg, positions)
@@ -98,12 +94,20 @@ def _attn_fwd(p, x, cfg, window, use_pallas):
 
 def _block_fwd(kind: str, p, x, cfg: ModelConfig, window: int,
                use_pallas: bool):
-    if kind in (ATTN, SHARED_ATTN):
+    """-> (x, aux loss or None)."""
+    if kind in (ATTN, SHARED_ATTN, MOE):
         x = x + _attn_fwd(p["attn"], L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                           cfg, window, use_pallas)
-        return x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x + M2.mamba2_forward(p["mix"], L.rmsnorm(p["ln"], x, cfg.norm_eps),
-                                 cfg, use_pallas)
+        h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if kind == MOE:
+            y, aux = MOE_MOD.moe_apply(p["moe"], h, cfg)
+            return x + y, aux
+        return x + L.mlp(p["mlp"], h), None
+    h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
+    if kind == MAMBA2:
+        return x + M2.mamba2_forward(p["mix"], h, cfg, use_pallas), None
+    mix = XL.mlstm_forward if kind == MLSTM else XL.slstm_forward
+    return x + mix(p["mix"], h, cfg), None
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +118,6 @@ def init(seed: int, cfg: ModelConfig, dtype=torch.float32, device=None
     """Parameters from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (the card unless given; ``"meta"`` gives shapes only), with
     the reference's key paths and stacking."""
-    check_supported(cfg)
     device = resolve_device(device)
     gen = None if device.type == "meta" \
         else torch.Generator(device=device).manual_seed(seed)
@@ -134,7 +137,21 @@ def init(seed: int, cfg: ModelConfig, dtype=torch.float32, device=None
     if not cfg.tie_embeddings:
         params["lm_head"] = L.linear_init(gen, cfg.d_model, cfg.vocab_size,
                                           dtype=dtype, device=device)
+    if cfg.n_patch_tokens > 0:
+        params["vis_proj"] = L.linear_init(gen, VIS_EMBED_DIM, cfg.d_model,
+                                           bias=True, dtype=dtype,
+                                           device=device)
     return params
+
+
+def _embed_inputs(params, batch, cfg):
+    """Token embeddings, behind the projected patch embeddings where the
+    config has a patch prefix and the batch carries them."""
+    x = L.embed(params["embed"], batch["tokens"])
+    if cfg.n_patch_tokens > 0 and "patch_embeds" in batch:
+        vis = L.linear(params["vis_proj"], batch["patch_embeds"].to(x.dtype))
+        x = torch.cat([vis, x], dim=1)
+    return x
 
 
 def _unembed(params, x, cfg):
@@ -145,31 +162,40 @@ def _unembed(params, x, cfg):
 
 def forward(params, batch, cfg: ModelConfig, use_pallas: bool = False,
             logits_slice: str = "all"):
-    """-> (logits (B, L, V), aux loss).  ``logits_slice="last"`` unembeds
-    only the final position (the serving prefill).  The aux loss is 0: it
-    comes from MoE routing, which this stack does not build."""
-    check_supported(cfg)
-    x = L.embed(params["embed"], batch["tokens"])
+    """-> (logits (B, L [+ patches], V), aux loss: the MoE blocks' load
+    balance, summed, fp32).  ``logits_slice="last"`` unembeds only the
+    final position (the serving prefill)."""
+    x = _embed_inputs(params, batch, cfg)
+    aux = torch.zeros((), device=x.device)
     for ri, (kind, win, idxs) in enumerate(partition_runs(cfg)):
         if kind == SHARED_ATTN:
-            x = _block_fwd(kind, params["shared_attn"], x, cfg, win,
-                           use_pallas)
-            continue
-        stacked = params["runs"][str(ri)]
-        for i in range(len(idxs)):
-            x = _block_fwd(kind, layer(stacked, i), x, cfg, win, use_pallas)
+            blocks = [params["shared_attn"]]
+        else:
+            stacked = params["runs"][str(ri)]
+            blocks = [layer(stacked, i) for i in range(len(idxs))]
+        for p in blocks:
+            x, a = _block_fwd(kind, p, x, cfg, win, use_pallas)
+            if a is not None:
+                aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice == "last":
         x = x[:, -1:]
-    return _unembed(params, x, cfg), torch.zeros((), device=x.device)
+    return _unembed(params, x, cfg), aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig, use_pallas: bool = False):
-    """Next-token cross-entropy; positions with label < 0 are masked.
-    -> (loss, {"ce", "aux"})."""
+    """Next-token cross-entropy over the text positions (the patch prefix's
+    logits are cut off); positions with label < 0 are masked.  -> (ce +
+    aux, {"ce", "aux"})."""
     logits, aux = forward(params, batch, cfg, use_pallas)
+    if cfg.n_patch_tokens > 0 and "patch_embeds" in batch:
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
+    return _next_token_ce(logits, batch["labels"], aux)
+
+
+def _next_token_ce(logits, labels, aux):
     logits = logits[:, :-1].float()
-    targets = batch["labels"][:, 1:]
+    targets = labels[:, 1:]
     mask = (targets >= 0).float()
     tgt = targets.clamp_min(0).long()
     lse = torch.logsumexp(logits, dim=-1)
@@ -181,51 +207,65 @@ def loss_fn(params, batch, cfg: ModelConfig, use_pallas: bool = False):
 # ---------------------------------------------------------------------------
 # Decode (serve_step): one token against a cache.
 # ---------------------------------------------------------------------------
+def _layer_cache(kind, win, cfg, batch, max_len, dtype, device):
+    """One layer's cache, batch rows first."""
+    if kind in (ATTN, MOE, SHARED_ATTN):
+        if cfg.mla is not None:
+            return A.mla_init_cache(cfg, batch, max_len, dtype, device)
+        S = min(max_len, win) if win > 0 else max_len
+        kv = (batch, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(kv, dtype=dtype, device=device),
+                "v": torch.zeros(kv, dtype=dtype, device=device),
+                "kpos": torch.full((batch, S), -1, dtype=torch.int32,
+                                   device=device)}
+    init_cache = {MAMBA2: M2.mamba2_init_cache, MLSTM: XL.mlstm_init_cache,
+                  SLSTM: XL.slstm_init_cache}[kind]
+    return init_cache(cfg, batch, dtype, device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     """Per-slot caches, every leaf (n_layers of the run, batch, ...): each
     sequence carries its own write position (``kpos`` (batch, S)), so the
-    serving engine decodes requests at different depths in one step."""
-    check_supported(cfg)
+    serving engine decodes requests at different depths in one step.
+    Recurrent states (Mamba2, xLSTM) are fp32 whatever ``dtype``."""
     device = resolve_device(device)
     cache: Dict = {}
     for ri, (kind, win, idxs) in enumerate(partition_runs(cfg)):
-        n = len(idxs)
-        if kind in (ATTN, SHARED_ATTN):
-            S = min(max_len, win) if win > 0 else max_len
-            kv = (n, batch, S, cfg.n_kv_heads, cfg.resolved_head_dim)
-            cache[str(ri)] = {
-                "k": torch.zeros(kv, dtype=dtype, device=device),
-                "v": torch.zeros(kv, dtype=dtype, device=device),
-                "kpos": torch.full((n, batch, S), -1, dtype=torch.int32,
-                                   device=device)}
-        else:
-            one = M2.mamba2_init_cache(cfg, batch, dtype, device)
-            cache[str(ri)] = {k: v.expand((n,) + v.shape).clone()
-                              for k, v in one.items()}
+        one = _layer_cache(kind, win, cfg, batch, max_len, dtype, device)
+        cache[str(ri)] = {k: v.expand((len(idxs),) + v.shape).clone()
+                          for k, v in one.items()}
     return cache
 
 
 def _block_decode(kind, p, x, c, cfg, cur_pos):
-    if kind == MAMBA2:
-        y, c = M2.mamba2_decode(p["mix"], L.rmsnorm(p["ln"], x, cfg.norm_eps),
-                                c, cfg)
+    if kind in (MAMBA2, MLSTM, SLSTM):
+        decode = {MAMBA2: M2.mamba2_decode, MLSTM: XL.mlstm_decode,
+                  SLSTM: XL.slstm_decode}[kind]
+        y, c = decode(p["mix"], L.rmsnorm(p["ln"], x, cfg.norm_eps), c, cfg)
         return x + y, c
-    # the window lives in the cache size (a ring buffer) and the kpos mask;
-    # each slot writes its own ring position
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    B = x.shape[0]
-    q, k, v = A._gqa_qkv(p["attn"], h, cfg, cur_pos[:, None])
-    S = c["k"].shape[1]
-    at = (torch.arange(B, device=x.device), torch.remainder(cur_pos, S))
-    ck = c["k"].index_put(at, k[:, 0].to(c["k"].dtype))
-    cv = c["v"].index_put(at, v[:, 0].to(c["v"].dtype))
-    kpos = c["kpos"].index_put(at, cur_pos.to(c["kpos"].dtype))
-    valid = (kpos >= 0) & (kpos <= cur_pos[:, None])
-    out = A._sdpa(q, ck, cv, valid[:, None, None, :])
-    x = x + L.linear(p["attn"]["wo"], out.reshape(B, 1, -1))
-    x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x, {"k": ck, "v": cv, "kpos": kpos}
+    if cfg.mla is not None:
+        y, c = A.mla_decode(p["attn"], h, c, cfg, cur_pos)
+    else:
+        # the window lives in the cache size (a ring buffer) and the kpos
+        # mask; each slot writes its own ring position
+        B = x.shape[0]
+        q, k, v = A._gqa_qkv(p["attn"], h, cfg, cur_pos[:, None])
+        S = c["k"].shape[1]
+        at = (torch.arange(B, device=x.device), torch.remainder(cur_pos, S))
+        ck = c["k"].index_put(at, k[:, 0].to(c["k"].dtype))
+        cv = c["v"].index_put(at, v[:, 0].to(c["v"].dtype))
+        kpos = c["kpos"].index_put(at, cur_pos.to(c["kpos"].dtype))
+        valid = (kpos >= 0) & (kpos <= cur_pos[:, None])
+        out = A._sdpa(q, ck, cv, valid[:, None, None, :])
+        y = L.linear(p["attn"]["wo"], out.reshape(B, 1, -1))
+        c = {"k": ck, "v": cv, "kpos": kpos}
+    x = x + y
+    h2 = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if kind == MOE:
+        return x + MOE_MOD.moe_apply(p["moe"], h2, cfg)[0], c
+    return x + L.mlp(p["mlp"], h2), c
 
 
 def decode_step(params, cache, tokens, cur_pos, cfg: ModelConfig,
@@ -235,7 +275,6 @@ def decode_step(params, cache, tokens, cur_pos, cfg: ModelConfig,
     a (B,) vector decodes per-slot positions, the continuous-batching path.
     ``active`` (B,) bool, when given, masks the cache update per slot:
     inactive slots keep their prior cache bit for bit."""
-    check_supported(cfg)
     B = tokens.shape[0]
     cur_pos = torch.as_tensor(cur_pos, device=tokens.device).long()
     cur_pos = cur_pos.reshape(-1).expand(B)

@@ -1,11 +1,14 @@
 """Serve a reduced architecture with batched requests (the port's
 counterpart of the JAX package's ``examples/serve_demo.py``): prefill a
 batch of prompts, then decode with the single-token serve step against the
-KV/state cache.
+KV/state cache.  Every architecture of ``configs/`` serves this way
+(``--arch``); the encoder-decoder (whisper-small) decodes against cross
+K/V that no encoder filled, as the reference's demo does.
 
 ``--engine`` instead routes the requests through the continuous-batching
 ``ServingEngine`` (chunked prefill interleaved with batched decode,
-per-request sampling).
+per-request sampling).  The engine refuses the encoder-decoder model, as
+the reference's does: Whisper's cache has one position for the batch.
 
 Run on the card:  PYTHONPATH=src python -m repro_torch.serve_demo
                       [--arch zamba2-1.2b] [--engine] [--device cpu]
@@ -56,7 +59,7 @@ def run_engine(cfg, args, device):
 
 
 def run_batch(cfg, args, device):
-    """Prefill by incremental decode (uniform across attention and
+    """Prefill by incremental decode (uniform across attention, MLA and
     recurrent caches), then greedy decode."""
     model = get_model(cfg)
     params = model.init(0, cfg, device=device)

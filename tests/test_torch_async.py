@@ -35,6 +35,9 @@ from repro_torch.federated.async_engine import (ASYNC_UNSUPPORTED,
 from repro_torch.federated.simulator import FederatedSimulator, SimConfig
 from repro_torch.telemetry import Histogram
 
+from _fixtures import (one_torch_thread,  # noqa: F401  (autouse)
+                       shared_reference_jits)
+
 HETERO = dict(enabled=True, speed_dist="bimodal", straggler_frac=0.3,
               straggler_slowdown=4.0, local_steps_choices=(2, 4, 8),
               drop_prob=0.05, seed=3)

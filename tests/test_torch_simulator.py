@@ -34,6 +34,8 @@ from repro_torch import convert
 from repro_torch.configs.base import FedConfig
 from repro_torch.federated.simulator import FederatedSimulator, SimConfig
 
+from _fixtures import shared_reference_jits  # noqa: F401  (autouse)
+
 
 @pytest.fixture(scope="module")
 def data():
