@@ -229,7 +229,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               against CPU (1e-3) and, on the mLSTM blocks 0-2, against the
               forward (2e-2): the sLSTM's norm spans the forward's whole
               sequence (the reference's), so the whole model's decode is
-              not the forward's prefix, which is logged.
+              not the forward's prefix, which is logged;
+15. pod     — the pod engine (``repro_torch.launch.train``), nothing
+              caught: (a) zamba2-1.2b at full width from seed 0, the mixed
+              round (bf16 broadcast and local steps, fp32 master θ and m),
+              remat full, FedADC nesterov at eta 0.01, CP 1 x CS 4 x H 2 of
+              B 2 x L 2048 make_token_dataset tokens at vocab 32,000: three
+              rounds, the update kernels' launches equal to the leaf
+              tables' prediction, θ and m fp32 and finite, θ moved and m
+              non-zero every round, the third round under
+              torch.cuda.set_sync_debug_mode("error"), the median of rounds
+              2-3 and the peak memory, a fourth round profiled (device
+              time by kernel, idle share); (b) FedADC+ (lambda 0.35, tau 1.0)
+              on that state, a warm-up round then one with exactly CS·H
+              KD forward and backward launches at (b·(L − 1), 32,000)
+              bf16, and one KD call pair timed there with its plain
+              version and bound; (c) a fleet of 8 on the same model, top-k
+              10% + EF on clients 0-3 then 2-5: the EF store's untouched
+              rows bit for bit, the touched ones changed, the
+              threshold-select launches, uplink bytes equal to the wire
+              formula; then one round of the sparse-native top-k wire;
+              (d) lm_round's model: QSGD 4 bits up with delta+QSGD 8 bits
+              down (the reference in state["refs"]), a heavy-ball round,
+              the delta unicast counters against the wire sizes, CP 2
+              against CP 1 over the same clients (1e-4 of max |Δθ|, fp32,
+              TF32 off), one fleet region and telemetry on bit for bit
+              against flat and off, and use_pallas=True refused (the LM
+              kernels have no backward); (e) one fp32 FedADC round of
+              qwen3-4b and zamba2-1.2b at reduced() on the card and on the
+              CPU, within 1e-4 of max |Δθ|; (f) lm_round.main (ROUNDS cut
+              to 30) and pod_finetune (--rounds 10) with its checkpoint
+              restored bit for bit.
 
 Every time is measured here, on the card named in the output.  Bounds use
 the H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s of fp32 outside the
@@ -239,6 +269,7 @@ import argparse
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -840,13 +871,16 @@ def kernel_times_main(src):
     return 0
 
 
-def profiled(torch, fn):
+def profiled(torch, fn, cpu=True):
     """Run ``fn()`` once under the profiler -> (its wall ms, the device
     kernels as (name, ms, count) rows by time, their summed ms).  Only
-    device-side events count, so no time counts twice."""
+    device-side events count, so no time counts twice; ``cpu=False``
+    records no host operators (a zamba2 round's ~70,000 kernels take
+    minutes to aggregate with them)."""
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
@@ -3290,6 +3324,669 @@ def archs_phase(torch, np):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the pod engine
+# ---------------------------------------------------------------------------
+POD_DEVICE = "cuda"
+POD_SHAPE = {"CS": 4, "H": 2, "b": 2, "L": 2048}   # (a)-(c), zamba2 full width
+POD_ETA = 0.01
+POD_FLEET = 8            # (c): the EF store's clients
+POD_FINETUNE_ROUNDS = 10  # (f): pod_finetune's --rounds, cut from 150
+POD_LM_ROUNDS = 30       # (f): lm_round's ROUNDS, cut from 60
+POD_KERNELS = ("fused_axpy", "local_update", "server_update",
+               "weighted_reduce", "threshold_select", "qsgd", "kd_loss",
+               "kd_loss_bwd")
+
+
+def pod_config():
+    from repro_torch.configs import get_arch
+    return get_arch(ZAMBA)
+
+
+def pod_batch(torch, np, tokens, r, CP=1, CS=None, H=None, b=None,
+              ids=None):
+    """Round r's batch (CP, CS, H, b, L): the next CP·CS·H·b documents of
+    ``tokens`` (L + 1 long), labels the tokens shifted by one, on the
+    card."""
+    CS = POD_SHAPE["CS"] if CS is None else CS
+    H = POD_SHAPE["H"] if H is None else H
+    b = POD_SHAPE["b"] if b is None else b
+    n = CP * CS * H * b
+    sel = (np.arange(n) + r * n) % len(tokens)
+    bt = torch.from_numpy(tokens[sel].reshape(CP, CS, H, b, -1)).to(
+        POD_DEVICE)
+    batch = {"tokens": bt[..., :-1].contiguous(),
+             "labels": bt[..., 1:].contiguous()}
+    if ids is not None:
+        batch["client_ids"] = torch.tensor(ids, dtype=torch.int32,
+                                           device=POD_DEVICE).reshape(CP, CS)
+    return batch
+
+
+def check_launches(tag, got, want):
+    got = {n: got[n] for n in want}
+    log(f"pod {tag}: launches {got}, predicted {want}")
+    if got != want:
+        raise AssertionError(f"pod {tag}: launches differ from the "
+                             f"prediction")
+
+
+def pod_finite(torch, T, tree):
+    return all(bool(torch.isfinite(x).all()) for x in T.leaves(tree))
+
+
+def pod_update_err(torch, T, got, want, start):
+    """max |got − want| / max |want − start| over a tree."""
+    num = max(float((a.float().cpu() - b.float().cpu()).abs().max())
+              for a, b in zip(T.leaves(got), T.leaves(want)))
+    den = max(float((a.float().cpu() - b.float().cpu()).abs().max())
+              for a, b in zip(T.leaves(want), T.leaves(start)))
+    return num / den
+
+
+def wire_formula(T, params):
+    """One client's top-k uplink bytes, from the leaf sizes: per leaf k
+    bf16 values, k indices of ⌈log2 n⌉ bits and a 32-bit header."""
+    bits = 0
+    for x in T.leaves(params):
+        n = x.numel()
+        idx = max(1, math.ceil(math.log2(n))) if n > 1 else 1
+        bits += topk_k(n) * (16 + idx) + 32
+    return (bits + 7) // 8
+
+
+def _rebuild(T, tree, outs):
+    """``outs`` (in leaf order) placed in a tree of ``tree``'s structure."""
+    it = iter(outs)
+    return T.tree_map(lambda _: next(it), tree)
+
+
+def set_aside(ops, aside, fn):
+    """Run fn; the launches it makes (checks against plain versions,
+    timings) are added to ``aside``, which the phase leaves out of its
+    main-path counts -> fn's result."""
+    mark = ops.launch_counts()
+    out = fn()
+    for n, c in launch_diff(ops, mark).items():
+        aside[n] = aside.get(n, 0) + c
+    return out
+
+
+def pod_kernel_checks(torch, T, ops, params, m, fed, tag):
+    """The six update and wire kernels of the pod path against their plain
+    versions (``kernels.ref``) on the card, leaf by leaf and bit for bit as
+    in phase 1, over the leaf table of ``params`` (a round's fp32 master θ;
+    ``m`` its fp32 momentum), each through the ``ops`` sweep the engine
+    calls and on the operands it gives it: the nesterov half-step and the
+    heavy-ball step on the bf16 local θ (1, ...) with the bf16 m̄ and a
+    bf16 gradient; the server step on the fp32 master with an fp32 Δ̄ at
+    scale 1/η; the recombine of one fp32 pod row (1, ...); the top-k select
+    and QSGD (at the uplink's and the downlink's levels) on one bf16 client
+    row (1, ...), the delta η·m."""
+    from repro_torch.kernels import ref
+    bf16, eta, dev = torch.bfloat16, fed.eta, T.leaves(params)[0].device
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def check(name, what, got, plain):
+        bad = 0
+        for i, g in enumerate(got):
+            w = plain(i)
+            pairs = zip(g, w) if isinstance(g, tuple) else [(g, w)]
+            bad += not all(a.dtype == b.dtype and torch.equal(a, b)
+                           for a, b in pairs)
+        log(f"pod {tag} check {name} ({what}) over {len(got)} leaves: "
+            f"{bad} leaves differ from the plain version")
+        if bad:
+            raise AssertionError(f"pod {tag}: {name} differs from its plain "
+                                 f"version")
+
+    def one(tree, dtype):
+        return T.tree_map(lambda x: x.to(dtype).unsqueeze(0), tree)
+    th = one(params, bf16)
+    mb = one(T.tree_map(lambda x: x * (fed.beta_local / fed.local_steps), m),
+             bf16)
+    xs, ms = T.leaves(th), T.leaves(mb)
+    check("fused_axpy", "bf16 θ + (−η)·m̄",
+          T.leaves(ops.fused_axpy_tree(th, mb, -eta)),
+          lambda i: ref.fused_axpy(xs[i], ms[i], -eta))
+    gs = [(1e-2 * torch.randn(x.shape, generator=gen, device=dev))
+          .to(bf16) for x in xs]
+    check("local_update", "bf16 θ − η(g + m̄)",
+          T.leaves(ops.fedadc_local_update_tree(th, _rebuild(T, th, gs),
+                                                mb, eta)),
+          lambda i: ref.fedadc_local_update(xs[i], gs[i], ms[i], eta))
+    del th, mb, xs, ms, gs
+    d = T.tree_map(lambda x: x * eta, m)
+    gamma, ae = fed.beta_global - fed.beta_local, fed.alpha * eta
+    new_t, new_m = ops.fedadc_server_update_tree(params, m, d, gamma, ae,
+                                                 scale=1.0 / eta)
+    ps, mm, ds = T.leaves(params), T.leaves(m), T.leaves(d)
+    check("server_update", "fp32 θ, m, Δ̄ at scale 1/η",
+          list(zip(T.leaves(new_t), T.leaves(new_m))),
+          lambda i: ref.fedadc_server_update(ps[i], mm[i], ds[i], gamma, ae,
+                                             1.0 / eta))
+    del new_t, new_m
+    rows = one(d, torch.float32)
+    rs, w = T.leaves(rows), torch.ones(1, device=dev)
+    check("weighted_reduce", "one fp32 pod row",
+          T.leaves(ops.weighted_delta_reduce_tree(rows, w)),
+          lambda i: ref.weighted_delta_reduce(rs[i], w))
+    del rows, rs
+    v = one(d, bf16)
+    del d, ds
+    vs = T.leaves(v)
+    taus = [torch.topk(x.reshape(1, -1).abs(), topk_k(x[0].numel()),
+                       dim=1).values[:, -1] for x in vs]
+    q, r = ops.topk_compress_tree(v, _rebuild(T, v, taus))
+    check("threshold_select", f"bf16 client row, top-k {TOPK_FRAC}",
+          list(zip(T.leaves(q), T.leaves(r))),
+          lambda i: ref.topk_threshold_select(vs[i], taus[i]))
+    del q, r, taus
+    us = [torch.rand(x.shape, generator=gen, device=dev).to(bf16)
+          for x in vs]
+    for bits in sorted({fed.qsgd_bits, fed.downlink_qsgd_bits or
+                        fed.qsgd_bits}):
+        s = (1 << bits) - 1
+        q, r = ops.qsgd_compress_tree(v, _rebuild(T, v, us), s)
+        check("qsgd", f"bf16 client row, {bits} bits",
+              list(zip(T.leaves(q), T.leaves(r))),
+              lambda i: ref.qsgd_quantize(
+                  vs[i], us[i], torch.amax(vs[i].reshape(1, -1).abs(),
+                                           dim=1), s))
+        del q, r
+
+
+def pod_zamba(torch, np, ops, T, PT, FedConfig, RunConfig, tokens, aside):
+    """(a) three mixed FedADC rounds of zamba2-1.2b at full width, the
+    third under sync debug mode "error", and a fourth profiled, then the
+    path's update and wire kernels against their plain versions over its
+    leaf table; (b) FedADC+ on the same state, a warm-up round and a
+    counted one, and one KD call pair checked against its plain version and
+    timed at that round's shape -> the KD timings.  The checks' and
+    timings' launches go to ``aside``."""
+    cfg = pod_config()
+    CS, H, b, L = (POD_SHAPE[k] for k in ("CS", "H", "b", "L"))
+    run = RunConfig(remat="full")
+    fed = FedConfig(strategy="fedadc", variant="nesterov", local_steps=H,
+                    clients_per_round=CS, eta=POD_ETA)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, s = timed(torch, lambda: PT.init_state(0, cfg, fed, run,
+                                                  device=POD_DEVICE))
+    leaves = T.leaves(state["params"])
+    n_params = sum(x.numel() for x in leaves)
+    g = table_groups(len(leaves))
+    log(f"pod (a) {ZAMBA}: {n_params} parameters in {len(leaves)} leaves "
+        f"({g} leaf-table groups), init {s:.2f}s, {peak(torch)}; CP 1, "
+        f"CS {CS}, H {H}, b {b}, L {L}, remat full, bf16 rounds, fp32 "
+        f"master")
+    step = PT.make_train_step(cfg, fed, run)
+    before = ops.launch_counts()
+    times = []
+    for r in range(3):
+        batch = pod_batch(torch, np, tokens, r)
+        torch.cuda.synchronize()
+        steady = r == 2
+        if steady:
+            # the reference's steady_state_transfer_guard: any call that
+            # waits for the card or reads it back raises
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            new, aux = step(state, batch)
+        finally:
+            if steady:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        moved = max(float((a.float() - b_.float()).abs().max())
+                    for a, b_ in zip(T.leaves(new["params"]),
+                                     T.leaves(state["params"])))
+        m_max = max(float(x.abs().max()) for x in T.leaves(new["server"]))
+        dtypes = {str(x.dtype) for x in T.leaves(new["params"])
+                  + T.leaves(new["server"])}
+        log(f"pod (a) round {r + 1}: {times[-1]:.3f}s"
+            f"{' (sync debug mode error)' if steady else ''}, loss "
+            f"{float(aux['loss'])}, max |Δθ| {moved}, max |m| {m_max}, "
+            f"dtypes {sorted(dtypes)}, {peak(torch)}")
+        if not (dtypes == {"torch.float32"} and moved > 0 and m_max > 0
+                and pod_finite(torch, T, new["params"])
+                and pod_finite(torch, T, new["server"])
+                and math.isfinite(float(aux["loss"]))):
+            raise AssertionError(f"pod (a) round {r + 1}: bad state")
+        state = new
+    median = statistics.median(times[1:])
+    log(f"pod (a): median round (rounds 2-3) {median:.3f}s, rounds "
+        f"{[round(t, 3) for t in times]}, {peak(torch)}")
+    # a fourth round under the profiler: device time by kernel, idle share
+    batch = pod_batch(torch, np, tokens, 3)
+    out = {}
+    wall, rows, busy = profiled(torch, lambda: out.update(
+        zip(("state", "aux"), step(state, batch))), cpu=False)
+    state = out["state"]
+    idle_share("pod (a) profiled round 4", "round", wall, rows, busy,
+               median * 1e3, top=15)
+    check_launches("(a)", launch_diff(ops, before), {
+        "fused_axpy": 4 * CS * H * 2 * g, "server_update": 4 * g,
+        "weighted_reduce": 4 * g, "local_update": 0, "kd_loss": 0})
+    set_aside(ops, aside, lambda: pod_kernel_checks(
+        torch, T, ops, state["params"], state["server"]["m"], fed,
+        f"(a) {ZAMBA}"))
+
+    # (b) FedADC+ on the same state
+    lam, tau = KD_LAM, KD_TAU
+    fed_kd = FedConfig(strategy="fedadc", variant="nesterov", local_steps=H,
+                       clients_per_round=CS, eta=POD_ETA, distill=True,
+                       distill_lambda=lam, distill_tau=tau)
+    step = PT.make_train_step(cfg, fed_kd, run)
+    state, aux = step(state, pod_batch(torch, np, tokens, 4))
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    (state, aux), s = timed(torch, lambda: step(
+        state, pod_batch(torch, np, tokens, 5)))
+    log(f"pod (b) FedADC+ (λ {lam}, τ {tau}): round {s:.3f}s after a "
+        f"warm-up, loss {float(aux['loss'])}, {peak(torch)}")
+    if not (math.isfinite(float(aux["loss"]))
+            and pod_finite(torch, T, state["params"])):
+        raise AssertionError("pod (b): non-finite")
+    check_launches("(b)", launch_diff(ops, before), {
+        "fused_axpy": CS * H * 2 * g, "server_update": g,
+        "weighted_reduce": g, "kd_loss": CS * H, "kd_loss_bwd": CS * H})
+    del state, step, aux
+    torch.cuda.empty_cache()
+    return set_aside(ops, aside, lambda: kd_pair_times(
+        torch, b * (L - 1), cfg.vocab_size))
+
+
+def kd_pair_times(torch, rows, n_classes):
+    """The KD forward and backward at (rows, n_classes) bf16, one group of
+    ρ, against their plain versions on the same operands within phase 5's
+    bars (forward 1e-5 + 1e-4 |plain|; backward, from the forward's
+    statistics, 1e-5 of the gradient's largest magnitude), then the
+    CUDA-event ms of the kernel, its plain version, and bounds."""
+    from repro_torch.kernels import kd_loss as KD
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(15)
+    operands = kd_operands(torch, rows, n_classes, 1, torch.bfloat16, gen)
+    s_, t_, y_, rho_, g_ = operands
+    got = KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
+    want = ref.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
+    excess = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
+                 for a, b in zip(got, want))
+    bwd = kd_bwd_check(torch, KD, ref, operands, got[3], KD_TAU)
+    log(f"pod (b) check kd_loss ({rows}, {n_classes}) bf16: max |kernel - "
+        f"plain| = {max_err([got], [want])} (bar 1e-5 + 1e-4 |plain|, "
+        f"excess over rtol {excess}); kd_loss_bwd tau={KD_TAU}: max |kernel "
+        f"- plain| = {bwd[0]}, {bwd[1]} of the largest (bar 1e-5), bit for "
+        f"bit {bwd[2]}")
+    if not (excess <= 1e-5 and bwd[1] <= 1e-5):
+        raise AssertionError(f"pod (b): the KD pair at ({rows}, {n_classes}) "
+                             f"differs from its plain version")
+    stats_ = got[3]
+    del got, want
+    out = {}
+    for name, call, plain in (
+            ("kd_loss",
+             lambda: KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU),
+             lambda: ref.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)),
+            ("kd_loss_bwd",
+             lambda: KD.kd_loss_bwd(s_, t_, y_, rho_, stats_, g_, KD_LAM,
+                                    KD_TAU),
+             lambda: ref.kd_loss_bwd(s_, t_, y_, rho_, stats_, g_, KD_LAM,
+                                     KD_TAU))):
+        b_ms, b_by = kd_bound(name, rows, n_classes, 1, elem_bytes=2)
+        out[name] = {"ms": cuda_ms(torch, call, iters=10),
+                     "plain_ms": cuda_ms(torch, plain, iters=3, warmup=1),
+                     "bound_ms": b_ms, "bound_by": b_by}
+        log(f"pod (b) {name} ({rows}, {n_classes}) bf16: "
+            f"{json.dumps(out[name])}")
+    return out
+
+
+def pod_wire(torch, np, ops, T, PT, FedConfig, RunConfig, tokens):
+    """(c) the wire on zamba2-1.2b at full width with a fleet of
+    POD_FLEET: top-k 10% + EF over two rounds on named clients, the EF
+    store's untouched rows bit for bit, then one round of the sparse-native
+    top-k wire."""
+    cfg = pod_config()
+    CS, H = POD_SHAPE["CS"], POD_SHAPE["H"]
+    run = RunConfig(remat="full")
+    for sparse in (False, True):
+        fed = FedConfig(strategy="fedadc", variant="nesterov", local_steps=H,
+                        clients_per_round=CS, eta=POD_ETA, compressor="topk",
+                        topk_frac=TOPK_FRAC, n_clients=POD_FLEET,
+                        sparse_uplink=sparse)
+        tag = "(c) sparse top-k" if sparse else "(c) top-k + EF"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = PT.init_state(0, cfg, fed, run, device=POD_DEVICE)
+        store = state["clients"]["ef"]
+        leaves = T.leaves(state["params"])
+        g = table_groups(len(leaves))
+        log(f"pod {tag}: EF store {POD_FLEET} x bf16, "
+            f"{sum(x.numel() * x.element_size() for x in T.leaves(store))}"
+            f" bytes, {peak(torch)}")
+        step = PT.make_train_step(cfg, fed, run)
+        before = ops.launch_counts()
+        waves = ([0, 1, 2, 3], [2, 3, 4, 5])[:1 if sparse else 2]
+        snap = None
+        for r, ids in enumerate(waves):
+            (state, aux), s = timed(torch, lambda: step(
+                state, pod_batch(torch, np, tokens, 6 + r, ids=ids)))
+            step.account_round(CS)
+            store = state["clients"]["ef"]
+            rows = [sum(int(torch.count_nonzero(x[i])) for x in
+                        T.leaves(store)) for i in range(POD_FLEET)]
+            log(f"pod {tag} round {r + 1} on clients {ids}: {s:.3f}s, "
+                f"loss {float(aux['loss'])}, non-zero entries of each EF "
+                f"row {rows}, {peak(torch)}")
+            if not (math.isfinite(float(aux["loss"]))
+                    and pod_finite(torch, T, state["params"])):
+                raise AssertionError(f"pod {tag}: non-finite")
+            untouched = [i for i in range(POD_FLEET)
+                         if all(i not in w for w in waves[:r + 1])]
+            if any(rows[i] for i in untouched) or not all(rows[i] for i in
+                                                           ids):
+                raise AssertionError(f"pod {tag}: EF rows touched wrongly")
+            if r == 0 and len(waves) > 1:
+                # rows 0, 1 are not in round 2: keep their bits on the host
+                snap = [x[:2].cpu() for x in T.leaves(store)]
+                sums = [sum(float(x[i].double().sum()) for x in
+                            T.leaves(store)) for i in (2, 3)]
+        if snap is not None:
+            same = all(torch.equal(x[:2].cpu(), y) for x, y in
+                       zip(T.leaves(store), snap))
+            now = [sum(float(x[i].double().sum()) for x in T.leaves(store))
+                   for i in (2, 3)]
+            log(f"pod {tag}: rows 0-1 bit for bit after round 2: {same}; "
+                f"rows 2-3 Σ before/after {sums} / {now}")
+            if not same or any(a == b_ for a, b_ in zip(sums, now)):
+                raise AssertionError(f"pod {tag}: the store's rows")
+        per_client = wire_formula(T, state["params"])
+        got = step.transport.uplink_bytes
+        want = len(waves) * CS * per_client
+        log(f"pod {tag}: uplink {got} bytes ({len(waves) * CS} uploads of "
+            f"{per_client}), raw {step.transport.uplink_bytes_raw}")
+        if got != want:
+            raise AssertionError(f"pod {tag}: uplink bytes")
+        check_launches(tag, launch_diff(ops, before), {
+            "threshold_select": 0 if sparse else len(waves) * CS * g,
+            "sparse_reduce": 0, "fused_axpy": len(waves) * CS * H * 2 * g})
+        del state, store, step, snap
+    torch.cuda.empty_cache()
+
+
+def pod_variants(torch, np, ops, T, PT, FedConfig, RunConfig, aside):
+    """(d) lm_round's model: QSGD up with delta+QSGD down, then the path's
+    update and wire kernels against their plain versions over its leaf
+    table (launches to ``aside``), heavy-ball, delta unicast counters, CP 2
+    against CP 1, one fleet region against flat, telemetry on against off,
+    and use_pallas=True refused."""
+    from repro_torch.benchmarks import lm_round
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.telemetry import Telemetry
+    cfg = lm_round.model_config()
+    tokens = make_token_dataset(64, 65, cfg.vocab_size, seed=1)[0]
+    CS, H = 4, 4
+    mixed = RunConfig(remat="none")
+    fp32 = RunConfig(remat="none", compute_dtype="float32")
+
+    def fed(**kw):
+        base = dict(strategy="fedadc", local_steps=H, clients_per_round=CS,
+                    eta=0.05, n_clients=8)
+        base.update(kw)
+        return FedConfig(**base)
+
+    def rounds(f, run, n, batches=None, telemetry=None, state=None):
+        st = state if state is not None else PT.init_state(
+            0, cfg, f, run, device=POD_DEVICE)
+        step = PT.make_train_step(cfg, f, run, telemetry=telemetry)
+        auxes = []
+        for r in range(n):
+            batch = batches[r] if batches is not None else pod_batch(
+                torch, np, tokens, r, CS=CS, H=H)
+            st, aux = step(st, batch)
+            auxes.append(aux)
+        torch.cuda.synchronize()
+        return st, step, auxes
+
+    leaves = T.leaves(PT.state_shapes(cfg, fed(), mixed)["params"])
+    g = table_groups(len(leaves))
+    before = ops.launch_counts()
+    fq = fed(compressor="qsgd", qsgd_bits=4, downlink_compressor="delta+qsgd",
+             downlink_qsgd_bits=8)
+    st, _, _ = rounds(fq, mixed, 2)
+    if "refs" not in st or not pod_finite(torch, T, st["params"]):
+        raise AssertionError("pod (d) qsgd: no downlink reference in state")
+    check_launches("(d) QSGD + delta+QSGD", launch_diff(ops, before),
+                   {"qsgd": 2 * (CS * g + g)})
+    set_aside(ops, aside, lambda: pod_kernel_checks(
+        torch, T, ops, st["params"], st["server"]["m"], fq,
+        "(d) lm_round's model"))
+    before = ops.launch_counts()
+    st, _, _ = rounds(fed(variant="heavyball"), mixed, 1)
+    check_launches("(d) heavy-ball", launch_diff(ops, before),
+                   {"local_update": CS * H * g, "fused_axpy": 0})
+
+    # delta unicast: counters against the wire sizes
+    f = fed(downlink_compressor="delta", downlink_unicast=True,
+            resync_horizon=1, n_clients=6)
+    step = PT.make_train_step(cfg, f, mixed)
+    for ids in ([0, 1], [1, 2], [0, 5]):
+        step.account_round(client_ids=np.array(ids))
+    raw_p = sum(x.numel() * 2 for x in leaves)     # bf16 broadcast
+    tr = step.transport
+    want = {"downlink_bytes": 5 * 2 * raw_p + 1 * raw_p,
+            "downlink_bytes_raw": 6 * 2 * raw_p,
+            "uplink_bytes": 6 * raw_p, "uplink_bytes_raw": 6 * raw_p,
+            "catchups": 1, "resyncs": 5}
+    got = {k: getattr(tr, k) for k in list(want)[:4]}
+    got.update(catchups=step.refs.catchups, resyncs=step.refs.resyncs)
+    log(f"pod (d) delta unicast: {got}, predicted {want}")
+    if got != want:
+        raise AssertionError("pod (d): unicast counters")
+
+    # CP 2 against CP 1 over the same clients; one region against flat;
+    # telemetry on against off (fp32, TF32 off)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    two = [pod_batch(torch, np, tokens, r, CP=2, CS=2, H=H)
+           for r in range(2)]
+    one = [{k: v.reshape((1, 4) + v.shape[2:]) for k, v in b_.items()}
+           for b_ in two]
+    start = PT.init_state(0, cfg, fed(), fp32, device=POD_DEVICE)
+    p0 = T.tree_map(lambda x: x.clone(), start["params"])
+    a, _, _ = rounds(fed(), fp32, 2, two, state=dict(start))
+    b1, _, _ = rounds(fed(), fp32, 2, one, state=dict(start))
+    err = pod_update_err(torch, T, a["params"], b1["params"], p0)
+    log(f"pod (d) CP 2 x CS 2 against CP 1 x CS 4, two rounds: max |Δ| / "
+        f"max |Δθ| = {err} (bar 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError("pod (d): CP 2 and CP 1 disagree")
+    r1, _, _ = rounds(fed(fleet_regions=1), fp32, 2, two, state=dict(start))
+    same = all(torch.equal(x, y) for x, y in zip(T.leaves(a["params"]),
+                                                 T.leaves(r1["params"])))
+    on, _, auxes = rounds(fed(), fp32, 2, two, state=dict(start),
+                          telemetry=Telemetry(engine="pod"))
+    same_tel = all(torch.equal(x, y) for x, y in zip(
+        T.leaves(a["params"]), T.leaves(on["params"])))
+    scalars = {k: float(v) for k, v in auxes[-1]["telemetry"].items()}
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+    log(f"pod (d) one fleet region bit for bit flat: {same}; telemetry on "
+        f"bit for bit off: {same_tel}, round 2's {scalars}")
+    if not (same and same_tel and all(math.isfinite(v) for v in
+                                      scalars.values())
+            and set(scalars) == {"delta_dispersion", "update_norm",
+                                 "momentum_alignment"}):
+        raise AssertionError("pod (d): fleet or telemetry")
+
+    # the kernel route refuses a gradient on the card
+    step = PT.make_train_step(cfg, fed(use_pallas=True), mixed)
+    try:
+        step(PT.init_state(0, cfg, fed(), mixed, device=POD_DEVICE),
+             pod_batch(torch, np, tokens, 0, CS=CS, H=H))
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        log(f"pod (d) use_pallas=True refused: {str(e)[:80]}...")
+    else:
+        raise AssertionError("pod (d): use_pallas=True trained")
+
+
+def pod_flips(torch, T, got, want, bar):
+    """The most entries of one leaf where got and want differ by more than
+    ``bar``."""
+    return max(int(((a.float().cpu() - b.float().cpu()).abs() > bar).sum())
+               for a, b in zip(T.leaves(got), T.leaves(want)))
+
+
+def pod_card_vs_cpu(torch, np, T, PT, FedConfig, RunConfig):
+    """(e) one round (CS 2, H 2, b 2, L 64, fp32, TF32 off) of qwen3-4b and
+    zamba2-1.2b at reduced() on the card and on the CPU from the same
+    parameters and tokens, under plain FedADC, FedADC+ (λ KD_LAM, τ KD_TAU,
+    one −100 label) and top-k 10% + EF: updates within 1e-4 of max |Δθ|.
+    Top-k may select differently where an entry's |v| ties its leaf's k-th
+    within the two devices' difference, moving that entry by a whole step:
+    there θ and m are held within 1e-4 except at up to 4 entries a leaf (the
+    CPU tests' allowance), and the sum η·m' + the clients' mean residual,
+    which a flip leaves unchanged (from m = 0 it is the clients' mean Δ),
+    within 1e-4 of its largest magnitude everywhere."""
+    from repro_torch.configs import get_arch
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = RunConfig(remat="none", compute_dtype="float32")
+    cases = (("FedADC", {}),
+             ("FedADC+", dict(distill=True, distill_lambda=KD_LAM,
+                              distill_tau=KD_TAU)),
+             ("top-k + EF", dict(compressor="topk", topk_frac=TOPK_FRAC,
+                                 n_clients=2)))
+    for name in ("qwen3-4b", ZAMBA):
+        cfg = get_arch(name).reduced()
+        rng = np.random.RandomState(15)
+        tok = rng.randint(0, cfg.vocab_size, (1, 2, 2, 2, 65)).astype(
+            np.int32)
+        for case, kw in cases:
+            fed = FedConfig(strategy="fedadc", local_steps=2,
+                            clients_per_round=2, eta=0.05, **kw)
+            labels = tok[..., 1:].copy()
+            if fed.distill:
+                labels[0, 1, 0, 1, 5] = -100
+            cpu = PT.init_state(0, cfg, fed, run, device="cpu")
+            p0 = T.tree_map(lambda x: x.clone(), cpu["params"])
+            card = PT.init_state(0, cfg, fed, run, device=POD_DEVICE,
+                                 params=cpu["params"])
+            outs = []
+            for st, dev in ((card, POD_DEVICE), (cpu, "cpu")):
+                outs.append(PT.make_train_step(cfg, fed, run)(st, {
+                    "tokens": torch.from_numpy(tok[..., :-1]).to(dev),
+                    "labels": torch.from_numpy(labels).to(dev)}))
+            (sc, ac), (sh, ah) = outs
+            err = pod_update_err(torch, T, sc["params"], sh["params"], p0)
+            what = (f"pod (e) {name} reduced, {case}, card vs CPU: max "
+                    f"|Δθ card − Δθ cpu| / max |Δθ| = {err} (bar 1e-4); loss "
+                    f"{float(ac['loss'])} / {float(ah['loss'])}")
+            if "clients" not in sh:
+                log(what)
+                if not err <= 1e-4:
+                    raise AssertionError(f"pod (e) {name} {case}: card and "
+                                         f"CPU disagree")
+                continue
+            step_max = max(float((a - b).abs().max()) for a, b in zip(
+                T.leaves(sh["params"]), T.leaves(p0)))
+            m_max = max(float(x.abs().max())
+                        for x in T.leaves(sh["server"]["m"]))
+            flips = (pod_flips(torch, T, sc["params"], sh["params"],
+                               1e-4 * step_max),
+                     pod_flips(torch, T, sc["server"]["m"],
+                               sh["server"]["m"], 1e-4 * m_max))
+
+            def kept(st):
+                return T.tree_map(
+                    lambda m_, e: fed.eta * m_.cpu() + e[:2].cpu().mean(0),
+                    st["server"]["m"], st["clients"]["ef"])
+            inv_c, inv_h = kept(sc), kept(sh)
+            inv = (max(float((a - b).abs().max()) for a, b in zip(
+                T.leaves(inv_c), T.leaves(inv_h)))
+                / max(float(x.abs().max()) for x in T.leaves(inv_h)))
+            log(f"{what}; entries beyond 1e-4 in one leaf (θ, m) {flips} "
+                f"(at most 4); η·m' + mean residual: max |card − cpu| / "
+                f"max = {inv} (bar 1e-4)")
+            if not (max(flips) <= 4 and inv <= 1e-4):
+                raise AssertionError(f"pod (e) {name} {case}: card and CPU "
+                                     f"disagree")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+
+
+def pod_drivers(torch, T):
+    """(f) lm_round.main and pod_finetune (--rounds cut) with a checkpoint
+    restored bit for bit."""
+    import tempfile
+
+    from repro_torch import pod_finetune
+    from repro_torch.benchmarks import lm_round
+    from repro_torch.checkpointing import restore_checkpoint
+    log(f"pod (f) lm_round cut to {POD_LM_ROUNDS} rounds a strategy (of "
+        f"{lm_round.ROUNDS})")
+    lm_round.ROUNDS = POD_LM_ROUNDS
+    rows, s = timed(torch, lambda: lm_round.main([], device=POD_DEVICE))
+    log(f"pod (f) lm_round: {s:.1f}s; rows {rows}")
+    losses = [float(r.split(",")[2]) for r in rows[:2]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("pod (f): lm_round's losses")
+    with tempfile.TemporaryDirectory() as d:
+        state, s = timed(torch, lambda: pod_finetune.main(
+            ["--rounds", str(POD_FINETUNE_ROUNDS), "--device", POD_DEVICE,
+             "--ckpt-dir", d]))
+        back = restore_checkpoint(d, POD_FINETUNE_ROUNDS, state["params"])
+        same = all(torch.equal(x, y) for x, y in zip(
+            T.leaves(back), T.leaves(state["params"])))
+    log(f"pod (f) pod_finetune --rounds {POD_FINETUNE_ROUNDS}: {s:.1f}s, "
+        f"checkpoint restored bit for bit: {same}")
+    if not same:
+        raise AssertionError("pod (f): the checkpoint")
+
+
+def pod_phase(torch, np):
+    """Phase 15: the pod engine (``launch/train.py``) -> (its launches of
+    every kernel, the checks' and timing calls' left out; the KD pair's
+    timings at zamba2's FedADC+ shape)."""
+    from repro_torch.configs.base import FedConfig, RunConfig
+    from repro_torch.core import tree as T
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as PT
+    cfg = pod_config()
+    tokens, _ = make_token_dataset(64, POD_SHAPE["L"] + 1, cfg.vocab_size,
+                                   seed=0)
+    start = ops.launch_counts()
+    aside = {}
+    t0 = time.perf_counter()
+    kd_times = pod_zamba(torch, np, ops, T, PT, FedConfig, RunConfig, tokens,
+                         aside)
+    log(f"pod (a)-(b): {time.perf_counter() - t0:.1f}s")
+    for part, fn in (("(c)", lambda: pod_wire(torch, np, ops, T, PT,
+                                              FedConfig, RunConfig, tokens)),
+                     ("(d)", lambda: pod_variants(torch, np, ops, T, PT,
+                                                  FedConfig, RunConfig,
+                                                  aside)),
+                     ("(e)", lambda: pod_card_vs_cpu(torch, np, T, PT,
+                                                     FedConfig, RunConfig)),
+                     ("(f)", lambda: pod_drivers(torch, T))):
+        t0 = time.perf_counter()
+        fn()
+        log(f"pod {part}: {time.perf_counter() - t0:.1f}s")
+    total = launch_diff(ops, start)
+    launches = {n: total[n] - aside.get(n, 0) for n in total}
+    log(f"pod: launches over the phase {launches}")
+    return launches, kd_times
+
+
 def main():
     import numpy as np
     import torch
@@ -3917,6 +4614,11 @@ def main():
     arch_launches = archs_phase(torch, np)
     log(f"archs: {time.perf_counter() - t0:.1f}s")
 
+    # -- 15. the pod engine -------------------------------------------------
+    t0 = time.perf_counter()
+    pod_launches, pod_kd = pod_phase(torch, np)
+    log(f"pod: {time.perf_counter() - t0:.1f}s")
+
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     # launches: the update kernels' from the main path (phase 3), the wire
     # kernels' from the wire phase (4), the KD kernels' from FedADC+ (5),
@@ -3927,6 +4629,8 @@ def main():
                                                       "kd_loss_bwd")})
     launches.update({n: serve_launches[n] + arch_launches[n]
                      for n in serve_launches})
+    # and the pod engine's (phase 15) on rows 1-6, 8 and 8b
+    launches.update({n: launches[n] + pod_launches[n] for n in POD_KERNELS})
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": TPU_KERNEL[name], "launches": launches[name],

@@ -31,9 +31,13 @@ card otherwise.  Prints ``name,us_per_call,derived`` CSV.  Modules:
   telemetry_bench    — telemetry on vs off overhead, the <=5% contract
                        (emits BENCH_telemetry_torch.json)
 
+Run only when named (``--only lm_round``; ``chip_smoke.py`` phase 15 runs
+it, phase 12 the modules above):
+  lm_round           — FedADC vs FedAvg on federated LM fine-tuning through
+                       the pod engine (held-out loss, µs a round)
+
 Not ported yet (``--only`` with one of these names exits non-zero):
-  lm_round           — one LM federated round on the pod engine (item 19)
-  roofline_report    — roofline terms from the dry-run artifacts (item 19)
+  roofline_report    — roofline terms from the dry-run artifacts (item 19a)
   kernels_bench      — kernels µs/call + derived bytes/flops (item 21)
 """
 import argparse
@@ -48,9 +52,9 @@ MODULES = ("fig1_acceleration", "fig2_robustness", "ablation_beta",
            "clustering", "table1_sota", "fig5_scale", "fig7_personalization",
            "straggler_bench", "fleet_bench", "comm_load", "serving_bench",
            "comm_sweep", "telemetry_bench")
+ON_REQUEST = ("lm_round",)
 UNPORTED = {
-    "lm_round": "ROADMAP Queue 1 item 19",
-    "roofline_report": "ROADMAP Queue 1 item 19",
+    "roofline_report": "ROADMAP Queue 1 item 19a",
     "kernels_bench": "ROADMAP Queue 1 item 21",
 }
 
@@ -68,9 +72,9 @@ def main(argv=None) -> int:
             print(f"{name} is not ported to the PyTorch port yet "
                   f"({UNPORTED[name]})", file=sys.stderr)
             return 2
-        if name not in MODULES:
-            print(f"unknown benchmark {name!r}; known: {', '.join(MODULES)}",
-                  file=sys.stderr)
+        if name not in MODULES + ON_REQUEST:
+            print(f"unknown benchmark {name!r}; known: "
+                  f"{', '.join(MODULES + ON_REQUEST)}", file=sys.stderr)
             return 2
     # no silent fallback: without a card this raises unless --device cpu
     device = resolve_device(args.device)

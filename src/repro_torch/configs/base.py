@@ -5,9 +5,13 @@ kinds and sub-configs (``:14-200``), the input shapes (``ShapeConfig``,
 fleet's ``HeteroConfig`` (``:297-325``), with every field, so configs are
 built the same way for both packages.
 
-``FedConfig.use_pallas`` is kept for parity only: on a CUDA tensor the
-engines always run their kernels.  The LM stack builds every block kind
-and every architecture of ``configs/``.
+``FedConfig.use_pallas`` picks the LM forward's route in the pod engine
+(``launch/train.py`` passes it to the model's forward, as the reference
+does): the flash attention and SSD kernels, or their plain versions.  The
+update, wire and KD kernels run on every CUDA tensor whatever it says.
+``RunConfig`` is the pod engine's run (its mesh fields kept for parity:
+the port runs on one card).  The LM stack builds every block kind and
+every architecture of ``configs/``.
 """
 from __future__ import annotations
 
@@ -226,7 +230,7 @@ class FedConfig:
     distill_tau: float = 1.0
     weight_decay: float = 0.0
     grad_clip: float = 0.0
-    use_pallas: bool = False       # kept for config parity; no effect here
+    use_pallas: bool = False       # the LM forward's kernel route (pod engine)
     # server-side aggregation: uniform | examples | drag
     aggregator: str = "uniform"
     drag_lambda: float = 4.0       # DRAG divergence temperature
@@ -303,3 +307,14 @@ SHAPES = {
     "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
     "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
 }
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    mesh_shape: Tuple[int, ...] = (16, 16)
+    mesh_axes: Tuple[str, ...] = ("data", "model")
+    multi_pod: bool = False
+    remat: str = "none"            # none | full | selective
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    seed: int = 0

@@ -5,8 +5,9 @@ on a *class-structured Gaussian image* dataset with the same cardinality
 interface (n classes, train/test split).  Each class has a smooth random
 template plus per-sample mode jitter and pixel noise — enough structure that
 (a) the CNN/ResNet learn it, and (b) non-iid partitioning induces the local
-drift the paper studies.  A numpy copy of the JAX package's
-``make_image_dataset``: the same seed gives the same arrays.
+drift the paper studies.  The LM rounds take domain-skewed Markov token
+streams (``make_token_dataset``).  Numpy copies of the JAX package's
+functions: the same seed gives the same arrays.
 """
 from __future__ import annotations
 
@@ -41,3 +42,28 @@ def make_image_dataset(n_train: int, n_test: int, n_classes: int,
     x_tr, y_tr = _sample(n_train, 1)
     x_te, y_te = _sample(n_test, 2)
     return x_tr, y_tr, x_te, y_te
+
+
+def make_token_dataset(n_docs: int, seq_len: int, vocab: int, seed: int = 0,
+                       n_domains: int = 10) -> Tuple[np.ndarray, np.ndarray]:
+    """Markov token streams with per-domain transition structure; the domain
+    id doubles as the 'class' for non-iid client partitioning.
+    -> (tokens (n_docs, seq_len) int32, domain (n_docs,) int32)."""
+    rng = np.random.RandomState(seed)
+    doms = rng.randint(0, n_domains, size=n_docs)
+    # each domain prefers a band of the vocab
+    tokens = np.zeros((n_docs, seq_len), np.int32)
+    band = max(vocab // n_domains, 8)
+    for i in range(n_docs):
+        d = doms[i]
+        lo = (d * band) % max(vocab - band, 1)
+        t = rng.randint(lo, lo + band)
+        seq = [t]
+        for _ in range(seq_len - 1):
+            if rng.rand() < 0.8:   # stay in band, markov-ish walk
+                t = lo + (t - lo + rng.randint(-3, 4)) % band
+            else:
+                t = rng.randint(0, vocab)
+            seq.append(t)
+        tokens[i] = np.array(seq, np.int32)
+    return tokens, doms.astype(np.int32)

@@ -1,6 +1,5 @@
 """Pluggable server aggregators (counterpart of the JAX package's
-``federated/aggregation.py``, without the pod engine's
-``streaming_weight``).
+``federated/aggregation.py``).
 
 Every strategy's server step consumes Δ̄ = Σ_i w_i·Δ_i / Σ_i w_i over the
 round's client deltas.  The weight families:
@@ -92,6 +91,29 @@ def reference_direction(server_state):
     keeps one, ``None`` otherwise (``drag_weights`` then falls back to the
     round mean)."""
     return server_state.get("m") if server_state is not None else None
+
+
+def streaming_weight(delta, ref, name: str, lam: float):
+    """One client's scalar weight, computable without the other deltas
+    (the pod engine's client-serial form); ``delta`` is one client's tree,
+    dense or a SparseLeaf wire.
+
+    ``examples`` is uniform here by construction: every pod-engine client
+    contributes the same (H, b, L) token budget.  ``drag`` needs a momentum
+    reference: the caller rejects momentum-less strategies up front (in
+    streaming form there is no round mean to fall back on)."""
+    if name not in KNOWN_AGGREGATORS:
+        raise ValueError(f"unknown aggregator {name!r}; "
+                         f"known: {', '.join(KNOWN_AGGREGATORS)}")
+    if name == "drag":
+        if ref is None:
+            raise ValueError("streaming drag weights need a momentum "
+                             "reference direction")
+        if is_sparse_tree(delta):
+            return torch.exp(-lam * sparse_cosine_divergence(delta, ref))
+        return torch.exp(-lam * cosine_divergence(delta, ref))
+    return torch.ones((), dtype=torch.float32,
+                      device=_first_tensor(delta).device)
 
 
 def drag_weights(deltas, ref=None, lam: float = 4.0):

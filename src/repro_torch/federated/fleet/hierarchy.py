@@ -20,8 +20,8 @@ reduction:
 
 At R = 1 stage 1 is the flat call on the whole round and stage 2 scales
 the one partial by W/W = 1.0, so the two tiers equal the flat aggregate
-bit for bit.  The pod engine's ``hierarchical_combine`` comes with the pod
-engine.
+bit for bit.  The pod engine's ``hierarchical_combine`` takes its CP pod
+partials through the same two tiers.
 """
 from __future__ import annotations
 
@@ -91,6 +91,15 @@ def hierarchical_aggregate(deltas, weights, fed, strategy, like=None):
         region_w.append(torch.sum(w_r))
     stacked = T.tree_map(lambda *xs: torch.stack(xs), *partials)
     return A.weighted_mean(stacked, torch.stack(region_w))
+
+
+def hierarchical_combine(partials, weights, fed, strategy):
+    """Pod-engine form: the per-pod partial means arriving at the final
+    combine are stage-1 units already (each pod's client-serial loop is a
+    regional reduce); the CP pod axis chunks into ``fed.fleet_regions``
+    regions and recombines, exact by the linearity the flat pod
+    recombination relies on, bit for bit at R = 1."""
+    return hierarchical_aggregate(partials, weights, fed, strategy)
 
 
 class HierarchicalAggregator:

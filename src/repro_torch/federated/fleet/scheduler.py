@@ -44,6 +44,14 @@ class Cohort:
     def region_slices(self) -> Tuple[Tuple[int, int], ...]:
         return slices_of(self.sizes)
 
+    def pod_client_ids(self, cp: int, cs: int) -> np.ndarray:
+        """The cohort as the pod engine's (CP, CS) int32 client-id grid
+        (client-serial within a pod, pod after pod)."""
+        if cp * cs != len(self.clients):
+            raise ValueError(f"cohort of {len(self.clients)} clients does "
+                             f"not fill a ({cp}, {cs}) pod grid")
+        return np.asarray(self.clients, np.int32).reshape(cp, cs)
+
 
 class FleetScheduler:
     """Deterministic region-aware cohort sampler over the fleet."""

@@ -27,7 +27,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _next_token_ce, layer
+from repro_torch.models.transformer import (_next_token_ce, checkpointed,
+                                           layer)
 
 
 def init(seed: int, cfg: ModelConfig, dtype=torch.float32, device=None
@@ -92,31 +93,37 @@ def _unembed(params, x):
     return x @ params["embed"]["emb"].T.to(x.dtype)          # tied
 
 
+def _dec_block(lp, x, enc_out, cfg):
+    x = x + _self_attn(lp, L.layernorm(lp["ln1"], x, cfg.norm_eps), cfg,
+                       causal=True)
+    x = x + A.cross_attn(lp["xattn"], L.layernorm(lp["ln_x"], x, cfg.norm_eps),
+                         enc_out, cfg)
+    return x + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], x, cfg.norm_eps))
+
+
 def forward(params, batch, cfg: ModelConfig, use_pallas: bool = False,
-            logits_slice: str = "all"):
+            remat: str = "none", logits_slice: str = "all"):
     """batch: frames (B, F, d), tokens (B, L) -> (logits (B, L, V), aux 0).
-    ``use_pallas`` is taken and ignored, as in the reference."""
+    ``use_pallas`` is taken and ignored, as in the reference; ``remat``
+    other than ``"none"`` recomputes each decoder block in the backward
+    pass (the encoder is kept, as the reference keeps it)."""
     enc_out = encode(params, batch["frames"], cfg)
     x = L.embed(params["embed"], batch["tokens"])
     x = x + params["pos_dec"][: x.shape[1]].to(x.dtype)
+    dec_block = checkpointed(_dec_block, remat)
     for i in range(cfg.n_layers):
-        lp = layer(params["dec"], i)
-        x = x + _self_attn(lp, L.layernorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                           causal=True)
-        x = x + A.cross_attn(lp["xattn"],
-                             L.layernorm(lp["ln_x"], x, cfg.norm_eps),
-                             enc_out, cfg)
-        x = x + L.gelu_mlp(lp["mlp"], L.layernorm(lp["ln2"], x, cfg.norm_eps))
+        x = dec_block(layer(params["dec"], i), x, enc_out, cfg)
     x = L.layernorm(params["dec_norm"], x, cfg.norm_eps)
     if logits_slice == "last":
         x = x[:, -1:]
     return _unembed(params, x), torch.zeros((), device=x.device)
 
 
-def loss_fn(params, batch, cfg: ModelConfig, use_pallas: bool = False):
+def loss_fn(params, batch, cfg: ModelConfig, use_pallas: bool = False,
+            remat: str = "none"):
     """Next-token cross-entropy; positions with label < 0 are masked.
     -> (ce, {"ce", "aux"}): the aux loss is 0 and not added."""
-    logits, aux = forward(params, batch, cfg, use_pallas)
+    logits, aux = forward(params, batch, cfg, use_pallas, remat)
     _, parts = _next_token_ce(logits, batch["labels"], aux)
     return parts["ce"], parts
 

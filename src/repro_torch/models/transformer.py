@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, MAMBA2, MLSTM, MOE, SHARED_ATTN,
                                       SLSTM, ModelConfig)
@@ -160,21 +161,42 @@ def _unembed(params, x, cfg):
     return L.linear(params["lm_head"], x)
 
 
+def checkpointed(fn, remat: str):
+    """``fn`` as a block of a run: recomputed in the backward pass unless
+    ``remat == "none"`` (the counterpart of the reference's
+    ``jax.checkpoint`` around its scan body).  The blocks draw no random
+    numbers, so the RNG state is not saved."""
+    if remat == "none":
+        return fn
+
+    def block(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return block
+
+
 def forward(params, batch, cfg: ModelConfig, use_pallas: bool = False,
-            logits_slice: str = "all"):
+            remat: str = "none", logits_slice: str = "all"):
     """-> (logits (B, L [+ patches], V), aux loss: the MoE blocks' load
-    balance, summed, fp32).  ``logits_slice="last"`` unembeds only the
-    final position (the serving prefill)."""
+    balance, summed, fp32).  ``remat`` other than ``"none"`` recomputes
+    each block of a run in the backward pass instead of keeping its
+    activations (a shared attention block is kept, as the reference keeps
+    it outside its scan).  ``logits_slice="last"`` unembeds only the final
+    position (the serving prefill)."""
     x = _embed_inputs(params, batch, cfg)
     aux = torch.zeros((), device=x.device)
+    run_block = checkpointed(_block_fwd, remat)
     for ri, (kind, win, idxs) in enumerate(partition_runs(cfg)):
         if kind == SHARED_ATTN:
-            blocks = [params["shared_attn"]]
-        else:
-            stacked = params["runs"][str(ri)]
-            blocks = [layer(stacked, i) for i in range(len(idxs))]
-        for p in blocks:
-            x, a = _block_fwd(kind, p, x, cfg, win, use_pallas)
+            x, a = _block_fwd(kind, params["shared_attn"], x, cfg, win,
+                              use_pallas)
+            if a is not None:
+                aux = aux + a
+            continue
+        stacked = params["runs"][str(ri)]
+        for i in range(len(idxs)):
+            x, a = run_block(kind, layer(stacked, i), x, cfg, win,
+                             use_pallas)
             if a is not None:
                 aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -183,11 +205,12 @@ def forward(params, batch, cfg: ModelConfig, use_pallas: bool = False,
     return _unembed(params, x, cfg), aux
 
 
-def loss_fn(params, batch, cfg: ModelConfig, use_pallas: bool = False):
+def loss_fn(params, batch, cfg: ModelConfig, use_pallas: bool = False,
+            remat: str = "none"):
     """Next-token cross-entropy over the text positions (the patch prefix's
     logits are cut off); positions with label < 0 are masked.  -> (ce +
     aux, {"ce", "aux"})."""
-    logits, aux = forward(params, batch, cfg, use_pallas)
+    logits, aux = forward(params, batch, cfg, use_pallas, remat)
     if cfg.n_patch_tokens > 0 and "patch_embeds" in batch:
         logits = logits[:, batch["patch_embeds"].shape[1]:]
     return _next_token_ce(logits, batch["labels"], aux)

@@ -42,7 +42,7 @@ from repro_torch.benchmarks import common as pcommon  # noqa: E402
 
 FIGURES = ("fig1_acceleration", "fig2_robustness", "ablation_beta",
            "clustering", "table1_sota", "fig5_scale")
-UNPORTED = ("lm_round", "roofline_report", "kernels_bench")
+UNPORTED = ("roofline_report", "kernels_bench")
 # ported with the telemetry slice; their drivers are held to the
 # reference's in test_torch_comm_sweep.py
 TELEMETRY_DRIVERS = ("comm_sweep", "telemetry_bench")
