@@ -240,7 +240,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               non-zero every round, the third round under
               torch.cuda.set_sync_debug_mode("error"), the median of rounds
               2-3 and the peak memory, a fourth round profiled (device
-              time by kernel, idle share); (b) FedADC+ (lambda 0.35, tau 1.0)
+              time by kernel, idle share, every GEMM kind and the GEMMs'
+              ms on the tensor and on the CUDA cores); (b) FedADC+ (lambda 0.35, tau 1.0)
               on that state, a warm-up round then one with exactly CS·H
               KD forward and backward launches at (b·(L − 1), 32,000)
               bf16, and one KD call pair timed there with its plain
@@ -259,7 +260,38 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               qwen3-4b and zamba2-1.2b at reduced() on the card and on the
               CPU, within 1e-4 of max |Δθ|; (f) lm_round.main (ROUNDS cut
               to 30) and pod_finetune (--rounds 10) with its checkpoint
-              restored bit for bit.
+              restored bit for bit;
+16. tools   — the launch tooling and the analysis, nothing caught: (a) the
+              dry-run (``python -m repro_torch.launch.dryrun``, one process
+              a cell, all started together) of zamba2-1.2b at the four
+              SHAPES and llama4-scout at train_4k on the meta device, each
+              line's counted and model FLOPs, useful fraction, bytes, the
+              three roofline terms and the dominant one, and the lines
+              through roofline_report; (b) phase 15's mixed round counted
+              on meta at its shape (CP 1 x CS 4 x H 2 of B 2 x L 2048) and
+              divided by the median round time phase 15 measured: the
+              achieved TFLOP/s, and by the operands' dtype each one's
+              TFLOP/s and share of its peak (bf16 on the tensor cores,
+              fp32 on the CUDA cores; spec sheet, by the card's name), the
+              least time the counted FLOPs take at those peaks, and each
+              dtype's FLOPs over the profiled round's GEMM time of its
+              class, which fails above the peak; and phase 15's state
+              bytes on the card (torch.cuda.memory_allocated around
+              init_state) against inputs.state_inputs' meta count, within
+              the caching allocator's rounding; (c) kernels_bench on the
+              card (all eleven kernels, CUDA events), its
+              BENCH_kernels_torch.json in chiprun_out/ held by
+              check_regression against the committed CPU run's with
+              --require sparse_aggregate; (d) the analysis: the AST rules
+              clean against analysis_baseline_torch.json, the kernel
+              coverage audit clean, and the per-round audit on the card
+              (the sync engine on the plain wire and top-k + EF, the async
+              engine; equal aten ops and kernel launches in rounds 1 and
+              2, no kernel library loaded again).
+
+``python3 chip_smoke.py --pod-round-counts`` only counts phase 15's mixed
+round on the meta device (phase 16 (b) runs it as a process of its own)
+and prints the counts as one JSON line; it needs no card.
 
 Every time is measured here, on the card named in the output.  Bounds use
 the H100 SXM data sheet: 3.35 TB/s of HBM, 67 TFLOP/s of fp32 outside the
@@ -908,6 +940,39 @@ def idle_share(tag, what, wall_ms, rows, busy_ms, steady_ms, top):
         return 1 - busy_ms / steady_ms
     log(f"{tag}: the profiler recorded no device time (not measured)")
     return None
+
+
+# words of a GEMM kernel's name (cuBLAS, cuBLASLt's nvjet, CUTLASS)
+GEMM_WORDS = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+# words of one that runs on the tensor cores (bf16/fp16, TF32)
+TENSOR_CORE_WORDS = ("nvjet", "bf16", "f16", "tf32", "s16816", "tensorop",
+                     "hmma", "wgmma")
+
+
+def gemm_class(name):
+    """"tensor cores" or "cuda cores" for a GEMM kernel's name (fp32
+    without TF32, PyTorch's default for matmul, runs on the CUDA cores),
+    None for any other kernel."""
+    n = name.lower()
+    if not any(w in n for w in GEMM_WORDS):
+        return None
+    return "tensor cores" if any(w in n for w in TENSOR_CORE_WORDS) \
+        else "cuda cores"
+
+
+def gemm_ms(tag, rows):
+    """Log every GEMM kind of a profile's ``rows`` in full and -> the
+    device ms of its GEMMs by class (``gemm_class``)."""
+    total = {"tensor cores": 0.0, "cuda cores": 0.0}
+    for key, ms, count in rows:
+        cls = gemm_class(key)
+        if cls is not None:
+            total[cls] += ms
+            log(f"{tag}: GEMM ({cls}) {ms:9.3f} ms x{count:<5} {key[:160]}")
+    log(f"{tag}: GEMMs on the tensor cores {total['tensor cores']:.3f} ms, "
+        f"on the CUDA cores {total['cuda cores']:.3f} ms, of "
+        f"{sum(r[1] for r in rows):.3f} busy ms in {len(rows)} kinds")
+    return total
 
 
 def profile_round(torch, sim, round_s, tag, top=12):
@@ -2252,6 +2317,9 @@ def fleet_phase(torch, data):
 # -- phase 12: the paper's benchmark drivers ----------------------------------
 # each driver's rows, by name, in the order the reference's driver emits them
 # (tests/test_torch_benchmarks.py holds this literal to the reference's)
+# the harness's modules that other phases run (phase 12 runs the rest)
+OTHER_PHASE_BENCHES = {"lm_round": 15, "roofline_report": 16,
+                       "kernels_bench": 16}
 BENCH_ROWS = {
     "fig1_acceleration": [
         "fig1.s2.fedavg", "fig1.s2.slowmo", "fig1.s2.fedadc",
@@ -3338,6 +3406,15 @@ POD_KERNELS = ("fused_axpy", "local_update", "server_update",
                "kd_loss_bwd")
 
 
+def pod_run_configs():
+    """(a)'s FedConfig and RunConfig: the mixed FedADC round."""
+    from repro_torch.configs.base import FedConfig, RunConfig
+    return (FedConfig(strategy="fedadc", variant="nesterov",
+                      local_steps=POD_SHAPE["H"],
+                      clients_per_round=POD_SHAPE["CS"], eta=POD_ETA),
+            RunConfig(remat="full"))
+
+
 def pod_config():
     from repro_torch.configs import get_arch
     return get_arch(ZAMBA)
@@ -3484,8 +3561,9 @@ def pod_kernel_checks(torch, T, ops, params, m, fed, tag):
     del q, r, taus
     us = [torch.rand(x.shape, generator=gen, device=dev).to(bf16)
           for x in vs]
-    for bits in sorted({fed.qsgd_bits, fed.downlink_qsgd_bits or
-                        fed.qsgd_bits}):
+    down_bits = fed.qsgd_bits if fed.downlink_qsgd_bits is None \
+        else fed.downlink_qsgd_bits
+    for bits in sorted({fed.qsgd_bits, down_bits}):
         s = (1 << bits) - 1
         q, r = ops.qsgd_compress_tree(v, _rebuild(T, v, us), s)
         check("qsgd", f"bf16 client row, {bits} bits",
@@ -3496,7 +3574,7 @@ def pod_kernel_checks(torch, T, ops, params, m, fed, tag):
         del q, r
 
 
-def pod_zamba(torch, np, ops, T, PT, FedConfig, RunConfig, tokens, aside):
+def pod_zamba(torch, np, ops, T, PT, FedConfig, tokens, aside):
     """(a) three mixed FedADC rounds of zamba2-1.2b at full width, the
     third under sync debug mode "error", and a fourth profiled, then the
     path's update and wire kernels against their plain versions over its
@@ -3504,15 +3582,19 @@ def pod_zamba(torch, np, ops, T, PT, FedConfig, RunConfig, tokens, aside):
     counted one, and one KD call pair checked against its plain version and
     timed at that round's shape -> the KD timings.  The checks' and
     timings' launches go to ``aside``."""
+    import gc
     cfg = pod_config()
     CS, H, b, L = (POD_SHAPE[k] for k in ("CS", "H", "b", "L"))
-    run = RunConfig(remat="full")
-    fed = FedConfig(strategy="fedadc", variant="nesterov", local_steps=H,
-                    clients_per_round=CS, eta=POD_ETA)
+    fed, run = pod_run_configs()
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
     state, s = timed(torch, lambda: PT.init_state(0, cfg, fed, run,
                                                   device=POD_DEVICE))
+    # the state's bytes on the card, for phase 16 (b)'s meta count
+    state_alloc = torch.cuda.memory_allocated() - alloc0
     leaves = T.leaves(state["params"])
     n_params = sum(x.numel() for x in leaves)
     g = table_groups(len(leaves))
@@ -3558,6 +3640,8 @@ def pod_zamba(torch, np, ops, T, PT, FedConfig, RunConfig, tokens, aside):
     median = statistics.median(times[1:])
     log(f"pod (a): median round (rounds 2-3) {median:.3f}s, rounds "
         f"{[round(t, 3) for t in times]}, {peak(torch)}")
+    measured = {"median_s": median, "state_alloc": state_alloc,
+                "peak": torch.cuda.max_memory_allocated()}
     # a fourth round under the profiler: device time by kernel, idle share
     batch = pod_batch(torch, np, tokens, 3)
     out = {}
@@ -3566,6 +3650,8 @@ def pod_zamba(torch, np, ops, T, PT, FedConfig, RunConfig, tokens, aside):
     state = out["state"]
     idle_share("pod (a) profiled round 4", "round", wall, rows, busy,
                median * 1e3, top=15)
+    # the GEMMs by class, for phase 16 (b)'s FLOPs by dtype
+    measured["gemm_ms"] = gemm_ms("pod (a) profiled round 4", rows)
     check_launches("(a)", launch_diff(ops, before), {
         "fused_axpy": 4 * CS * H * 2 * g, "server_update": 4 * g,
         "weighted_reduce": 4 * g, "local_update": 0, "kd_loss": 0})
@@ -3595,7 +3681,7 @@ def pod_zamba(torch, np, ops, T, PT, FedConfig, RunConfig, tokens, aside):
     del state, step, aux
     torch.cuda.empty_cache()
     return set_aside(ops, aside, lambda: kd_pair_times(
-        torch, b * (L - 1), cfg.vocab_size))
+        torch, b * (L - 1), cfg.vocab_size)), measured
 
 
 def kd_pair_times(torch, rows, n_classes):
@@ -3955,7 +4041,8 @@ def pod_drivers(torch, T):
 def pod_phase(torch, np):
     """Phase 15: the pod engine (``launch/train.py``) -> (its launches of
     every kernel, the checks' and timing calls' left out; the KD pair's
-    timings at zamba2's FedADC+ shape)."""
+    timings at zamba2's FedADC+ shape; (a)'s median round seconds and the
+    state's bytes on the card)."""
     from repro_torch.configs.base import FedConfig, RunConfig
     from repro_torch.core import tree as T
     from repro_torch.data.synthetic import make_token_dataset
@@ -3967,8 +4054,8 @@ def pod_phase(torch, np):
     start = ops.launch_counts()
     aside = {}
     t0 = time.perf_counter()
-    kd_times = pod_zamba(torch, np, ops, T, PT, FedConfig, RunConfig, tokens,
-                         aside)
+    kd_times, measured = pod_zamba(torch, np, ops, T, PT, FedConfig, tokens,
+                                   aside)
     log(f"pod (a)-(b): {time.perf_counter() - t0:.1f}s")
     for part, fn in (("(c)", lambda: pod_wire(torch, np, ops, T, PT,
                                               FedConfig, RunConfig, tokens)),
@@ -3984,7 +4071,214 @@ def pod_phase(torch, np):
     total = launch_diff(ops, start)
     launches = {n: total[n] - aside.get(n, 0) for n in total}
     log(f"pod: launches over the phase {launches}")
-    return launches, kd_times
+    return launches, kd_times, measured
+
+
+# phase 16: the launch tooling and the analysis
+TOOLS_DRYRUN = [("zamba2-1.2b", shape) for shape in
+                ("train_4k", "prefill_32k", "decode_32k", "long_500k")] \
+    + [("llama4-scout-17b-a16e", "train_4k")]
+TOOLS_TIMEOUT = 600        # seconds for the meta-device processes
+
+
+def pod_round_counts():
+    """Phase 15's mixed round (a) counted on the meta device at its shape
+    -> {"flops", "bytes", "flops_by_dtype"}: its FLOPs (also by the
+    operands' dtype) and bytes, the round composed from three short ones
+    (``dryrun.count_train_round``)."""
+    import torch
+    from repro_torch.launch import dryrun
+    fed, run = pod_run_configs()
+    CS, H, b, L = (POD_SHAPE[k] for k in ("CS", "H", "b", "L"))
+    batch = {k: torch.empty((1, CS, H, b, L), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    c = dryrun.count_train_round(pod_config(), fed, run, batch)
+    return {"flops": c.flops, "bytes": c.bytes,
+            "flops_by_dtype": c.flops_by_dtype}
+
+
+def pod_round_counts_main(src):
+    sys.path.insert(0, src)
+    print(json.dumps(pod_round_counts()))
+    return 0
+
+
+def allocator_slack(sizes):
+    """The most the caching allocator's blocks can exceed these tensors'
+    bytes: each block rounds up to 512 B, and a block of the large pool
+    (above 1 MiB) is not split for a remainder of 1 MiB or less."""
+    return sum(512 if n <= 1 << 20 else (1 << 20) + 512 for n in sizes)
+
+
+# a dtype of counted matrix-product FLOPs -> the GEMM class that runs it
+DTYPE_GEMM_CLASS = {"bfloat16": "tensor cores", "float16": "tensor cores",
+                    "float32": "cuda cores"}
+
+
+def pod_roofline(R, smi, counts, pod_round):
+    """Phase 16 (b): the round's counted FLOPs over its median time, by
+    operand dtype against that dtype's peak; the least time those FLOPs
+    take at the peaks; and, per dtype, the FLOPs over the profiled round's
+    GEMM time of the class that runs them, which no peak may be below
+    (else the count or the sorting of the GEMMs is wrong)."""
+    peaks = R.peaks_for(smi.split(",")[0])
+    median = pod_round["median_s"]
+    log(f"tools (b) pod round (CP 1 x CS {POD_SHAPE['CS']} x H "
+        f"{POD_SHAPE['H']} of B {POD_SHAPE['b']} x L {POD_SHAPE['L']}, "
+        f"mixed): {counts['flops']:.6g} FLOP (matrix products) and "
+        f"{counts['bytes']:.6g} bytes counted on meta, median round "
+        f"{median:.3f}s (phase 15): {counts['flops'] / median / 1e12:.3f} "
+        f"TFLOP/s; {peaks.name}; card {smi}")
+    least_s = 0.0
+    for dtype, flops in sorted(counts["flops_by_dtype"].items()):
+        peak = peaks.for_dtype(dtype)
+        cls = DTYPE_GEMM_CLASS.get(dtype)
+        if peak is None or cls is None:
+            raise AssertionError(f"tools (b): no peak for {dtype} products")
+        least_s += flops / peak
+        gemm_s = pod_round["gemm_ms"][cls] / 1e3
+        rate = flops / gemm_s if gemm_s > 0 else float("inf")
+        log(f"tools (b)   {dtype}: {flops:.6g} FLOP, "
+            f"{flops / median / 1e12:.3f} TFLOP/s over the round, "
+            f"{flops / median / peak:.4f} of the {dtype} peak "
+            f"({peak / 1e12:g} TFLOP/s); over the profiled round's GEMMs on "
+            f"the {cls} ({gemm_s * 1e3:.3f} ms): {rate / 1e12:.3f} TFLOP/s, "
+            f"{rate / peak:.4f} of the peak")
+        if rate > peak:
+            raise AssertionError(f"tools (b): the {dtype} FLOPs exceed the "
+                                 f"peak over the {cls}' GEMM time")
+    log(f"tools (b)   the counted FLOPs at the peaks take {least_s:.4f}s: "
+        f"{least_s / median:.4f} of the median round")
+
+
+def tools_phase(torch, smi, pod_round):
+    """Phase 16: (a) the dry-run and roofline_report, (b) phase 15's round
+    against its roofline and its state's bytes against the meta count, (c)
+    kernels_bench on the card with check_regression, (d) the analysis.
+    The meta-device counts run as processes of their own, started first
+    and awaited last; every one is stopped on the way out."""
+    import os
+    import tempfile
+
+    from repro_torch.analysis import ast_rules, load_baseline, trace_audit
+    from repro_torch.benchmarks import (check_regression, kernels_bench,
+                                        roofline_report)
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import ops
+    from repro_torch.launch import inputs as I
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch.mesh import make_card_mesh
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="tools-"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    try:
+        for arch, shape in TOOLS_DRYRUN:
+            out = tmp / f"{arch}.{shape}.jsonl"
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--device", "meta",
+                   "--out", str(out)]
+            procs.append((f"dryrun {arch} {shape}", out, subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        counter = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--pod-round-counts"], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs.append(("pod round counts", None, counter))
+        t_start = time.perf_counter()
+
+        # (c) kernels_bench on the card, held against the CPU run's file
+        rows = kernels_bench.main([], device="cuda", out_json=str(
+            out_dir / "BENCH_kernels_torch.json"))
+        torch.cuda.synchronize()
+        for r in rows:
+            log(f"tools (c) {r}")
+        code = check_regression.main([
+            f"{out_dir / 'BENCH_kernels_torch.json'}:"
+            f"{ROOT / 'BENCH_kernels_torch.json'}",
+            "--require", "sparse_aggregate"])
+        if code != 0:
+            raise AssertionError("tools (c): check_regression failed")
+
+        # (d) the analysis
+        baseline = load_baseline(str(ROOT / "analysis_baseline_torch.json"))
+        new, suppressed, stale = baseline.apply(ast_rules.run_ast_rules(
+            str(ROOT)))
+        log(f"tools (d) AST rules: {len(new)} new, {len(suppressed)} "
+            f"suppressed, {len(stale)} stale")
+        cover = trace_audit.audit_kernel_coverage(str(ROOT))
+        log(f"tools (d) kernel coverage: {len(ops.KERNELS)} kernels, "
+            f"{[f.format() for f in cover]}")
+        seen = []
+        retrace = trace_audit.audit_retrace(
+            (("sync", {}), trace_audit.RETRACE_MATRIX[1], ("async", {})),
+            include_pod=False, device="cuda", seen=seen)
+        for ctxname, what, launches in seen:
+            log(f"tools (d) per-round audit {ctxname} {what}: launches "
+                f"{launches}")
+        log(f"tools (d) per-round audit on the card: "
+            f"{[f.format() for f in retrace]}")
+        launched = {c for c, _, n in seen if n}
+        if new or stale or cover or retrace or len(launched) != 3:
+            raise AssertionError("tools (d): the analysis is not clean")
+
+        # (a) the dry-run lines, then the report
+        records = []
+        for name, out, proc in procs:
+            text, err = proc.communicate(timeout=max(
+                1.0, TOOLS_TIMEOUT - (time.perf_counter() - t_start)))
+            if proc.returncode != 0:
+                raise AssertionError(f"tools: {name} exited "
+                                     f"{proc.returncode}:\n{text}\n{err}")
+            if out is None:
+                counts = json.loads(text.strip().splitlines()[-1])
+                continue
+            records += [json.loads(x) for x in out.read_text().splitlines()]
+        log(f"tools (a) the meta-device processes: "
+            f"{time.perf_counter() - t_start:.1f}s")
+        for r in records:
+            log(f"tools (a) {r['arch']} {r['shape']}: {r['status']}, "
+                f"counted {r['flops']:.6g} FLOP, model {r['model_flops']:.6g}"
+                f", useful {r['useful_flop_frac']:.4f}, bytes "
+                f"{r['bytes']:.6g}, compute {r['compute_s']:.6g}s, memory "
+                f"{r['memory_s']:.6g}s, collective {r['collective_s']}s, "
+                f"dominant {r['dominant']}, state "
+                f"{r['per_device_hbm_gb']:.3f} GiB ({r['peaks']}; counted "
+                f"in {r['t_compile_s']}s)")
+            if r["status"] != "ok" or not r["flops"] > 0:
+                raise AssertionError(f"tools (a): {r['arch']} {r['shape']}")
+        path = tmp / "baseline_singlepod_torch.jsonl"
+        path.write_text("".join(json.dumps(r) + "\n" for r in records))
+        report = roofline_report.main([], results=[("singlepod",
+                                                    str(path))])
+        if len(report) != len(TOOLS_DRYRUN):
+            raise AssertionError("tools (a): roofline_report's rows")
+
+        # (b) phase 15's round against its roofline
+        pod_roofline(R, smi, counts, pod_round)
+        fed, run = pod_run_configs()
+        state, _ = I.state_inputs(pod_config(), fed, run, make_card_mesh())
+        meta_bytes = I.state_nbytes(state)
+        sizes = [x.numel() * x.element_size() for k in ("params", "server")
+                 for x in T.leaves(state[k])]
+        slack = allocator_slack(sizes)
+        diff = pod_round["state_alloc"] - meta_bytes
+        log(f"tools (b) pod state: {pod_round['state_alloc']} bytes "
+            f"allocated on the card (phase 15), {meta_bytes} counted on "
+            f"meta in {len(sizes)} tensors: {diff:+d} bytes (allocator "
+            f"rounding at most {slack}); the rounds' peak "
+            f"{pod_round['peak'] / 2**30:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated)")
+        if not 0 <= diff <= slack:
+            raise AssertionError("tools (b): the state's bytes differ")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def main():
@@ -4616,8 +4910,13 @@ def main():
 
     # -- 15. the pod engine -------------------------------------------------
     t0 = time.perf_counter()
-    pod_launches, pod_kd = pod_phase(torch, np)
+    pod_launches, pod_kd, pod_round = pod_phase(torch, np)
     log(f"pod: {time.perf_counter() - t0:.1f}s")
+
+    # -- 16. the launch tooling and the analysis ----------------------------
+    t0 = time.perf_counter()
+    tools_phase(torch, smi, pod_round)
+    log(f"tools: {time.perf_counter() - t0:.1f}s")
 
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     # launches: the update kernels' from the main path (phase 3), the wire
@@ -4650,8 +4949,13 @@ if __name__ == "__main__":
                         help="only build and time the SSD scan, QSGD, the "
                              "update and select sweeps and the KD forward "
                              "(kernel_times) and print them as one JSON line")
+    parser.add_argument("--pod-round-counts", action="store_true",
+                        help="only count phase 15's mixed round on the meta "
+                             "device and print the counts as one JSON line")
     parser.add_argument("--src", default=str(ROOT / "src"),
                         help="with --kernel-times: the src/ directory whose "
                              "repro_torch to time")
     args = parser.parse_args()
+    if args.pod_round_counts:
+        sys.exit(pod_round_counts_main(args.src))
     sys.exit(kernel_times_main(args.src) if args.kernel_times else main())

@@ -67,7 +67,7 @@ def _qsgd_plan(shapes, dtype):
     table rows with the q and r byte offsets into one output buffer (q's of
     every leaf, then r's), the buffer's half length, each view's (shape,
     strides, offset) and the per-group totals of (rows, blocks)."""
-    esize = torch.empty((), dtype=dtype).element_size()
+    esize = dtype.itemsize
     fields, units, views, off = [], [], [], 0
     for shape in shapes:
         rows, n = shape[0], math.prod(shape[1:])

@@ -74,7 +74,7 @@ def _sweep_plan(shapes, dtype, tile, inputs=2, fp32_output=False):
     in ``dtype``, then one in fp32 where ``fp32_output`` — n, the end of
     the leaf's blocks), the buffers' length in elements, each view's
     (shape, strides, offset) and the launches the table takes."""
-    esizes = (torch.empty((), dtype=dtype).element_size(),) + (
+    esizes = (dtype.itemsize,) + (
         (4,) if fp32_output else ())
     fields, units, geometry, off = [], [], [], 0
     for shape in shapes:

@@ -227,7 +227,7 @@ class KDLoss(torch.autograd.Function):
 
     @staticmethod
     def forward(s, t, labels, rho, lam, tau):
-        if s.device.type == "cpu":
+        if ref.plain(s):
             return ref.kd_loss(s, t, labels, rho, lam, tau)
         return kd_loss(*_operands(s, t, labels, rho), lam, tau)
 
@@ -266,7 +266,7 @@ class KDLossBackward(torch.autograd.Function):
 
     @staticmethod
     def forward(s, t, labels, rho, stats, g, lam, tau):
-        if s.device.type == "cpu":
+        if ref.plain(s):
             return ref.kd_loss_bwd(s, t, labels, rho, stats, g, lam, tau)
         return kd_loss_bwd(*_operands(s, t, labels, rho), _contig(stats),
                            _contig(g, torch.float32), lam, tau)

@@ -2,8 +2,10 @@
 package's ``kernels/ops.py``).
 
 A CUDA tensor launches the Hopper kernel (or the kernel's wrapper raises);
-a CPU tensor takes the kernel's plain version from ``ref``.  The device of
-the operands is the only thing that picks the path.  The ``*_tree`` forms
+a CPU tensor takes the kernel's plain version from ``ref``, and so does a
+``meta`` tensor (the dry-run's shape pass, ``launch/dryrun.py``, which
+computes nothing and counts the plain route's FLOPs and bytes).  The device
+of the operands is the only thing that picks the path.  The ``*_tree`` forms
 take a whole sweep over a tree's leaves: on the card one leaf-table call
 per dtype, on the CPU the same per-leaf plain versions as the one-leaf
 forms.
@@ -20,6 +22,7 @@ from repro_torch.kernels import fedadc_update as _fu
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kd_loss as _kd
 from repro_torch.kernels import ref
+from repro_torch.kernels.ref import plain
 from repro_torch.kernels import sparse_reduce as _sr
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import weighted_reduce as _wr
@@ -52,17 +55,17 @@ def reset_launch_counts() -> None:
 def fused_axpy(x, y, a):
     """x + a·y on a single leaf."""
     y = y.to(x.dtype)
-    if x.device.type == "cpu":
+    if plain(x):
         return ref.fused_axpy(x, y, a)
     return _fu.fused_axpy(x, y, a)
 
 
 def _on_cpu(leaves, name):
-    """True if a sweep's leaves all lie on the CPU, False if all on the
-    card; raises if they mix."""
+    """True if a sweep's leaves all lie on the CPU (or all on ``meta``),
+    False if all on the card; raises if they mix."""
     if all(t.is_cuda for t in leaves):
         return False
-    if all(t.is_cpu for t in leaves):
+    if all(t.is_cpu for t in leaves) or all(t.is_meta for t in leaves):
         return True
     raise ValueError(f"{name}: leaves on mixed devices "
                      f"{sorted({str(t.device) for t in leaves})}")
@@ -106,7 +109,7 @@ def fused_axpy_tree(xs_tree, ys_tree, a):
 def fedadc_local_update(theta, g, m_bar, eta):
     """θ − η(g + m̄) on a single leaf."""
     g, m_bar = g.to(theta.dtype), m_bar.to(theta.dtype)
-    if theta.device.type == "cpu":
+    if plain(theta):
         return ref.fedadc_local_update(theta, g, m_bar, eta)
     return _fu.local_update(theta, g, m_bar, eta)
 
@@ -114,7 +117,7 @@ def fedadc_local_update(theta, g, m_bar, eta):
 def fedadc_server_update(theta, m, delta_bar, gamma, alpha_eta):
     """(θ', m') fused server update on a single leaf; ``m`` and
     ``delta_bar`` fp32."""
-    if theta.device.type == "cpu":
+    if plain(theta):
         return ref.fedadc_server_update(theta, m, delta_bar, gamma, alpha_eta)
     return _fu.server_update(theta, m, delta_bar, gamma, alpha_eta)
 
@@ -159,7 +162,7 @@ def fedadc_server_update_tree(theta_tree, m_tree, delta_tree, gamma,
 
 def weighted_delta_reduce(deltas, weights):
     """Σ_k w_k·Δ_k on a single stacked leaf (leading axis K)."""
-    if deltas.device.type == "cpu":
+    if plain(deltas):
         return ref.weighted_delta_reduce(deltas, weights)
     return _wr.weighted_reduce(deltas, weights)
 
@@ -187,7 +190,7 @@ def qsgd_compress_leaf(v, u, scale, s):
     shape), ``scale`` (B,) each row's max magnitude, ``s`` the level count.
     -> (dequantised q, residual v − q)."""
     u = u.to(v.dtype)
-    if v.device.type == "cpu":
+    if plain(v):
         return ref.qsgd_quantize(v, u, scale, s)
     return _cp.qsgd(v.contiguous(), u.contiguous(), scale.contiguous(), s)
 
@@ -218,7 +221,7 @@ def qsgd_compress_tree(vs_tree, us_tree, s):
 def topk_compress_leaf(v, thresh):
     """Magnitude-threshold select (top-k with τ (B,) precomputed).
     -> (selected q, residual v − q)."""
-    if v.device.type == "cpu":
+    if plain(v):
         return ref.topk_threshold_select(v, thresh)
     return _cp.threshold_select(v.contiguous(), thresh.contiguous())
 
@@ -277,7 +280,7 @@ def sparse_weighted_delta_reduce(values, indices, weights, shape, dtype):
     """Σ_k w_k · scatter(values_k @ indices_k) for one leaf from the stacked
     (K, k) wire pairs, into the dense ``shape``/``dtype`` template: the
     sparse server aggregate at K·k cost, fp32 accumulation, cast on write."""
-    if values.device.type == "cpu":
+    if plain(values):
         return ref.sparse_weighted_delta_reduce(values, indices, weights,
                                                 shape, dtype)
     return _sr.sparse_reduce(values.contiguous(),
@@ -342,7 +345,7 @@ def flash_attention(q, k, v, causal=True, window=0):
     """q (B, L, H, D), k/v (B, L, Hk, D) in the model's layout -> (B, L, H,
     D) in q's dtype.  On the card it refuses operands that need a
     gradient (``_refuse_grad``)."""
-    if q.device.type == "cpu":
+    if plain(q):
         out = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal, window)
         return out.transpose(1, 2)
@@ -360,7 +363,7 @@ def ssd_scan(x, dt, A_log, B, C, D, chunk=256):
     card it refuses kernel operands that need a gradient."""
     chunk = min(chunk, x.shape[1])
     xdt, a = ref.ssd_prologue(x, dt, A_log)
-    if x.device.type == "cpu":
+    if plain(x):
         y = ref.ssd_recurrence(xdt, a, B, C).to(x.dtype)
     else:
         _refuse_grad("ssd_scan", xdt, a, B, C)

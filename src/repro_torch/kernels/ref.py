@@ -17,6 +17,15 @@ from __future__ import annotations
 
 import torch
 
+# the devices whose tensors take the plain versions (``meta``: shapes only,
+# the dry-run's; ``ops`` and the KD Functions ask ``plain``)
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def plain(t) -> bool:
+    """True if ``t`` takes its kernel's plain version, not the kernel."""
+    return t.device.type in PLAIN_DEVICES
+
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """At least fp32, never a downcast (float64 stays float64)."""

@@ -103,7 +103,7 @@ def sparse_reduce_leaves(values, indices, weights: torch.Tensor, shapes,
                              f"({n_clients}, k) each, got {wire}")
         plan = _PLANS.setdefault(key, _plan(
             [tuple(s) for s in shapes], [s[1] for s in wire], n_clients,
-            torch.empty((), dtype=dtype).element_size()))
+            dtype.itemsize))
     template, total, views, scratch = plan
     out = torch.empty(total, dtype=dtype, device=weights.device)
     if scratch is not None:

@@ -62,7 +62,11 @@ def route(p, xt, cfg):
     topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
     flat_e, flat_w = topi.reshape(-1), topw.reshape(-1)
     cap = capacity(cfg, T)
-    counts = torch.bincount(flat_e, minlength=m.n_experts)
+    # bincount's counts, as an integer index_add_ (exact in any order),
+    # which also runs on the meta device (the dry-run's shape pass)
+    counts = torch.zeros((m.n_experts,), dtype=flat_e.dtype,
+                         device=xt.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
     ce = counts.float() / (T * m.top_k)
     aux = m.router_aux_coef * m.n_experts * torch.sum(probs.mean(0) * ce)
     # position within the expert: the stable sort keeps token order

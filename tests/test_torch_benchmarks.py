@@ -42,7 +42,18 @@ from repro_torch.benchmarks import common as pcommon  # noqa: E402
 
 FIGURES = ("fig1_acceleration", "fig2_robustness", "ablation_beta",
            "clustering", "table1_sota", "fig5_scale")
-UNPORTED = ("roofline_report", "kernels_bench")
+# ported with the launch tooling; phase 16 of chip_smoke.py runs them
+TOOLING_BENCHES = ("roofline_report", "kernels_bench")
+# the reference's kernels_bench rows (``benchmarks/kernels_bench.py``),
+# the sparse section's at K 16
+REF_KERNEL_ROWS = [
+    "kernel.fedadc_local_update.1M", "kernel.fedadc_server_update.1M",
+    "kernel.weighted_delta_reduce.K8.1M", "kernel.flash_attention.512",
+    "kernel.ssd_scan.512", "kernel.kd_loss.256x1000",
+    "kernel.sparse_aggregate.K16.frac0.01",
+    "kernel.sparse_aggregate.K16.frac0.05",
+    "kernel.sparse_aggregate.K16.frac0.1",
+    "kernel.sparse_aggregate.K16.frac0.25"]
 # ported with the telemetry slice; their drivers are held to the
 # reference's in test_torch_comm_sweep.py
 TELEMETRY_DRIVERS = ("comm_sweep", "telemetry_bench")
@@ -440,17 +451,61 @@ def test_chip_smoke_bench_rows_are_the_reference_names(
     spec.loader.exec_module(chip_smoke)
     want = reference_rows(monkeypatch, tmp_path, ref_cnn, ref_comm_rows)
     assert chip_smoke.BENCH_ROWS == want
+    # phase 12 runs every harness module but those other phases run
+    # (lm_round in phase 15, roofline_report and kernels_bench in 16)
     run = importlib.import_module("repro_torch.benchmarks.run")
-    assert set(chip_smoke.BENCH_ROWS) == set(run.MODULES)
+    assert set(chip_smoke.OTHER_PHASE_BENCHES) == {"lm_round",
+                                                   *TOOLING_BENCHES}
+    assert set(chip_smoke.OTHER_PHASE_BENCHES) <= set(run.MODULES)
+    assert set(chip_smoke.BENCH_ROWS) == \
+        set(run.MODULES) - set(chip_smoke.OTHER_PHASE_BENCHES)
 
 
-@pytest.mark.parametrize("name", UNPORTED)
-def test_run_only_an_unported_module_exits_non_zero(name, capsys):
+@pytest.mark.parametrize("name", TOOLING_BENCHES)
+def test_run_only_a_tooling_bench_runs_it(name, monkeypatch, tmp_path,
+                                           capsys):
+    """``--only roofline_report`` / ``--only kernels_bench`` exit 0 and
+    print the reference's row names: the report over one dry-run file
+    (the reference's report reads the same records), the kernels at their
+    shapes (the sparse section's d cut to 4096, which no row name
+    carries)."""
     run = importlib.import_module("repro_torch.benchmarks.run")
-    assert run.main(["--only", name, "--device", "cpu"]) != 0
-    err = capsys.readouterr().err
-    assert "not ported" in err and "Queue 1 item" in err
-    assert name in run.__doc__ and name not in run.MODULES
+    assert name in run.MODULES and name in run.__doc__
+    monkeypatch.chdir(tmp_path)
+    if name == "roofline_report":
+        from repro_torch.launch import dryrun
+        (tmp_path / "results").mkdir()
+        path = tmp_path / "results" / "baseline_singlepod_torch.jsonl"
+        assert dryrun.main(["--arch", "zamba2-1.2b", "--shape",
+                            "decode_32k", "--out", str(path)]) == 0
+        rmod = importlib.import_module("benchmarks.roofline_report")
+        monkeypatch.setattr(rmod, "RESULTS", [("singlepod", str(path))])
+        want = names(rmod.main([]))
+        capsys.readouterr()
+    else:
+        kb = importlib.import_module("repro_torch.benchmarks.kernels_bench")
+        monkeypatch.setattr(kb, "SPARSE", {"K": 16, "d": 4096})
+        monkeypatch.setattr(kb, "ITERS", 1)
+        want = REF_KERNEL_ROWS
+    assert run.main(["--only", name, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"# {name} took" in out and "ERROR" not in out
+    got = [line.split(",")[0] for line in out.splitlines()
+           if line.startswith(("roofline.", "kernel."))]
+    assert want and [n for n in got if n in want] == want
+    if name == "kernels_bench":
+        # under results/, never over the committed baseline at the root
+        assert (tmp_path / "results" / "BENCH_kernels_torch.json").exists()
+        assert not (tmp_path / "BENCH_kernels_torch.json").exists()
+        assert all(line.endswith("route=plain-cpu")
+                   for line in out.splitlines()
+                   if line.startswith("kernel."))
+
+
+def test_run_only_an_unknown_module_exits_non_zero(capsys):
+    run = importlib.import_module("repro_torch.benchmarks.run")
+    assert run.main(["--only", "no_such_bench", "--device", "cpu"]) == 2
+    assert "unknown benchmark" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("name", TELEMETRY_DRIVERS)
@@ -462,8 +517,7 @@ def test_run_only_a_telemetry_driver_runs_it(name, monkeypatch, tmp_path,
     pmod = importlib.import_module(f"repro_torch.benchmarks.{name}")
     stub_comm(monkeypatch, pmod, pcommon, True)
     monkeypatch.chdir(tmp_path)
-    assert name in run.MODULES and name not in run.UNPORTED
-    assert name in run.__doc__.split("Not ported yet")[0]
+    assert name in run.MODULES and name in run.__doc__
     assert run.main(["--only", name, "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert f"# {name} took" in out and "ERROR" not in out

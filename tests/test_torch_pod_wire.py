@@ -562,11 +562,11 @@ def test_run_only_lm_round_runs_it(monkeypatch, capsys):
     run = importlib.import_module("repro_torch.benchmarks.run")
     monkeypatch.setattr(lm_round, "run", lambda strat, eta, device=None:
                         (1.5 if strat == "fedadc" else 2.0, 10.0))
-    assert "lm_round" not in run.UNPORTED
+    assert "lm_round" in run.MODULES
     assert run.main(["--only", "lm_round", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "lm_round.fedadc_minus_fedavg,0,-0.5000" in out
-    assert run.main(["--only", "roofline_report", "--device", "cpu"]) == 2
+    assert run.main(["--only", "no_such_bench", "--device", "cpu"]) == 2
 
 
 def test_pod_finetune_makes_the_reference_calls(monkeypatch, capsys):
