@@ -6,10 +6,16 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --kernel-times [--src OTHER/src]`` only builds the
-port of this (or another) checkout and times its SSD scan, QSGD sweep,
-local and server update sweeps, threshold-select sweep and KD forward
+port of this (or another) checkout and times its SSD scan, flash attention
+at the prefill shape, QSGD sweep, sparse reduce of the CNN, local and
+server update sweeps, threshold-select sweep and KD pair
 (``kernel_times``), one JSON line, so that two checkouts can be timed in
 turns on one card.
+
+``python3 chip_smoke.py --kernel-shapes`` only builds and runs the checks
+and times of the shapes past the kernels' single-tile routes
+(``kernel_shapes_main``: the wide KD, flash and SSD shapes and
+``shapes_phase``), one JSON line of the times.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -75,6 +81,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
               one C++ call), flash and the SSD in bf16 at
               the prefill shape too, and both LM kernels at the prefill_32k
               length (L 32768);
+2b. shapes  — every shape the reference's Pallas kernels take, beyond the
+              kernels' first limits (shapes_phase; the new flash, SSD and
+              KD shapes are among phase 2's: flash D 80, 96, 256 with and
+              without a window, 40 padded, 320 and 512 on the wide route;
+              the SSD at Mamba-2 2.7B's layer (N 128), P and N 128 on a
+              ragged L, P 160 x N 192, chunks of 512 and 1000, decays
+              that underflow at N 128; the KD pair at each dtype's cluster
+              limit and one class more, Gemma's 256,000 classes and (bf16)
+              600,000, with the special rows on the split route), each
+              call's launches against its plan's: (a) the sparse reduce
+              on one leaf of 27,443,201, 65,536,000 and 2**30 + 3
+              elements (segments), fp32 and bf16, bit for bit; (b)
+              aggregation.sparse_weighted_mean over zamba2-1.2b's 74
+              leaves at K 4 x top-k 10%, bit for bit; (c) each new shape
+              timed beside its bound (flash also beside
+              scaled_dot_product_attention); (d) zamba2-1.2b with d_state
+              128, 2 layers, B 1 x L 2048, kernel route vs plain route
+              within 1e-3 / 5e-2 of max |logit|, the SSD's three kernels
+              in its profile;
 3. main     — the paper CNN at width 32 on 32x32x3 images at CIFAR-10
               cardinality (50000/10000), sort-and-partition s=2 over 100
               clients, FedConfig defaults (|S|=8, H=8, nesterov) but eta 0.01,
@@ -690,8 +715,8 @@ def kd_yardsticks(torch, KD, gen, iters=30):
     """{label: ms} of the KD forward and backward (wall by CUDA events over
     `iters` calls, and device ms by kernel) at the FedADC+ CNN's folded
     (512, 10) with 8 groups of ρ in fp32 (there also the host time of the
-    call), an LM vocabulary's (1024, 32768) in fp32 and bf16, and 8 rows of
-    it in fp32; then one vmapped grad_and_value of self_confidence_kd_loss
+    call), an LM vocabulary's (1024, 32768) in fp32 and bf16, 8 rows of
+    it in fp32 and the pod round's (4094, 32000) in bf16; then one vmapped grad_and_value of self_confidence_kd_loss
     over K=8 clients of 64 rows of 10 classes, phase 5's Function path
     (the vmap rules' folds and checks around both kernels): wall over 200
     calls, host time and device ms by kernel."""
@@ -699,7 +724,8 @@ def kd_yardsticks(torch, KD, gen, iters=30):
     out = {}
     for rows, n_classes, groups, dtype in (
             (512, 10, 8, torch.float32), (1024, 32768, 1, torch.float32),
-            (1024, 32768, 1, torch.bfloat16), (8, 32768, 1, torch.float32)):
+            (1024, 32768, 1, torch.bfloat16), (8, 32768, 1, torch.float32),
+            (4094, 32000, 1, torch.bfloat16)):
         s_, t_, y_, rho_, g_ = kd_operands(torch, rows, n_classes, groups,
                                            dtype, gen)
         stats_ = KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)[3]
@@ -849,13 +875,30 @@ def kernel_times(torch, gen):
     QSGD's qsgd_yardsticks over the CNN's 16 leaves and ResNet-18's largest
     leaf, the update sweeps' update_yardsticks and the threshold select's
     select_yardsticks over the CNN's 16 leaves, ResNet-18's 76 and its
-    largest leaf, and the KD pair's kd_yardsticks."""
+    largest leaf, the KD pair's kd_yardsticks; flash attention at
+    zamba2-1.2b's prefill shape in fp32 and bf16 and the sparse reduce of
+    the CNN's 16 leaves (K 8 top-k wires, fp32), 30 calls each."""
     from repro_torch.kernels import compress as CP
     from repro_torch.kernels import fedadc_update as FU
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import kd_loss as KD
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_reduce as SR
     from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.models.vision import cnn_init, resnet18_init
     out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = flash_operands(torch, FLASH_SHAPES[7], dtype, gen)
+        out[f"flash_attention prefill {dtype}"] = cuda_ms(
+            torch, lambda: FA.flash_attention(q, k, v, True, 0))
+        out[f"flash_attention prefill {dtype}, device ms by kernel"] = \
+            device_ms_by_kernel(torch, lambda: FA.flash_attention(
+                q, k, v, True, 0))
+        del q, k, v
+    kern = wire_sweeps(torch, CP, SR, ref, leaf_shapes(cnn_init(
+        0, width=32, image_size=32, device="cpu")), torch.float32,
+        gen)["sparse_reduce"][0]
+    out["sparse_reduce CNN fp32"] = cuda_ms(torch, kern)
     for tag, shape in (("prefill", SSD_SHAPES[-1]),
                        ("L 32768", (1, LONG_L, 64, 64, 64, 256))):
         for dtype in (torch.float32, torch.bfloat16):
@@ -863,6 +906,10 @@ def kernel_times(torch, gen):
             out[f"ssd_scan {tag} {dtype}"] = cuda_ms(
                 torch, lambda: SSD.ssd_scan(xdt, a, Bm, Cm, 256, dtype),
                 iters=30 if tag == "prefill" else 10)
+            if tag == "prefill":
+                out[f"ssd_scan {tag} {dtype}, device ms by kernel"] = \
+                    device_ms_by_kernel(torch, lambda: SSD.ssd_scan(
+                        xdt, a, Bm, Cm, 256, dtype))
             del xdt, a, Bm, Cm
     cnn_shapes = leaf_shapes(cnn_init(0, width=32, image_size=32,
                                       device="cpu"))
@@ -1249,9 +1296,16 @@ def kd_edge_shapes(KD, esize):
     assert KD.cluster_plan(single + 1, esize)[0] == 2
     tile = KD.BWD_TILE
     assert not KD.bwd_plan(64, tile - 1)[2] and KD.bwd_plan(64, tile + 1)[2]
+    top = KD.max_classes(esize)
+    assert KD.fwd_plan(16, top, esize)[0] == "cluster"
+    assert KD.fwd_plan(16, top + 1, esize)[0] == "split"
     return [(64, KD.WARP_MAX_C, 4), (64, KD.WARP_MAX_C + 1, 4),
             (16, single, 2), (16, single + 1, 2), (64, tile - 1, 4),
-            (64, tile + 1, 4), (300, 3, 3), (8, 32768, 1)]
+            (64, tile + 1, 4), (300, 3, 3), (8, 32768, 1),
+            # the cluster route's last C and the split route's first, Gemma's
+            # vocabulary, and (bf16) a row of 600,000 classes
+            (16, top, 2), (16, top + 1, 2), (64, 256000, 4)] + (
+                [(8, 600000, 1)] if esize == 2 else [])
 
 
 def bwd_excess(torch, ds, want):
@@ -1294,10 +1348,13 @@ def kd_special_rows(torch, KD, ref, gen, n_classes, dtype):
     there CE = lse_s - s_y and the loss follow from it."""
     s_, t_, y_, rho_, g_ = kd_operands(torch, 8, n_classes, 2, dtype, gen)
     j = torch.arange(n_classes, device="cuda")
+    esize = torch.empty((), dtype=dtype).element_size()
     if n_classes <= 32:                  # lanes below C/2
         dead = j < n_classes // 2
     elif n_classes <= KD.WARP_MAX_C:     # lanes 0-15 of each row
         dead = j % 32 < 16
+    elif KD.fwd_plan(8, n_classes, esize)[0] == "split":   # the first CTA's
+        dead = j < KD.SPLIT_SLICE
     else:                                # the first CTA's slice
         cl, slice_, _ = KD.cluster_plan(
             n_classes, torch.empty((), dtype=dtype).element_size())
@@ -1335,7 +1392,7 @@ def kd_special_rows(torch, KD, ref, gen, n_classes, dtype):
     return worst, bwd
 
 
-def kd_kernel_checks(torch, KD, ref, gen, errs):
+def kd_kernel_checks(torch, KD, ref, gen, errs, only_new=False):
     """The KD forward and backward against their plain versions on the
     card in fp32 and bf16: at KD_SHAPES and each route's boundary
     (kd_edge_shapes), forward within 1e-5 + 1e-4 |plain|; the backward,
@@ -1345,13 +1402,25 @@ def kd_kernel_checks(torch, KD, ref, gen, errs):
     bit or not; each row's statistics are reduced in another order than
     the plain version's); then both on rows with an out-of-range label and
     ±inf logits (kd_special_rows) on every route, NaN and inf where the
-    plain version has them."""
+    plain version has them.  ``only_new``: the split route's shapes alone
+    (--kernel-shapes)."""
     for dtype in (torch.float32, torch.bfloat16):
         esize = torch.empty((), dtype=dtype).element_size()
-        for rows, n_classes, groups in KD_SHAPES + kd_edge_shapes(KD, esize):
+        shapes = KD_SHAPES + kd_edge_shapes(KD, esize)
+        specials = (10, KD.WARP_MAX_C, KD.WARP_MAX_C + 1,
+                    kd_edge_shapes(KD, esize)[3][1], 32768,
+                    KD.max_classes(esize) + 1)
+        if only_new:
+            shapes = kd_edge_shapes(KD, esize)[8:]
+            specials = specials[-1:]
+        for rows, n_classes, groups in shapes:
             ops_ = kd_operands(torch, rows, n_classes, groups, dtype, gen)
             s_, t_, y_, rho_, _ = ops_
+            before = KD.kd_loss.launches
             got = KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
+            if KD.kd_loss.launches - before != 1:
+                raise AssertionError(f"kd_loss ({rows}, {n_classes}): "
+                                     f"{KD.kd_loss.launches - before} launches")
             want = ref.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)
             e = max_err([got], [want])
             excess = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
@@ -1375,8 +1444,7 @@ def kd_kernel_checks(torch, KD, ref, gen, errs):
             errs["kd_loss"] = max(errs["kd_loss"], e)
             errs["kd_loss_bwd"] = max(errs["kd_loss_bwd"], bwd[0][0],
                                       bwd[1][0])
-        for n_classes in (10, KD.WARP_MAX_C, KD.WARP_MAX_C + 1,
-                          kd_edge_shapes(KD, esize)[3][1], 32768):
+        for n_classes in specials:
             excess, bwd = kd_special_rows(torch, KD, ref, gen, n_classes,
                                           dtype)
             torch.cuda.synchronize()
@@ -1407,15 +1475,31 @@ FLASH_SHAPES = [(1, 2, 2, 128, 64, 0), (2, 4, 2, 256, 64, 0),
                 # phase 14's heads: internvl2-26b (48 over 8, a group of
                 # 6) and llama4-scout (40 over 8, a group of 5)
                 (1, 48, 8, 2048, 128, 0), (2, 40, 8, 2048, 128, 0)]
+# every head dim: Phi-2 (D 80), Phi-3-mini (96), Gemma-7B (256), a GQA
+# window at D 256, an odd D padded (40), and D above 256 (the wide route)
+FLASH_NEW_SHAPES = [(1, 32, 32, 2048, 80, 0), (1, 32, 32, 4096, 96, 0),
+                    (1, 16, 16, 4096, 256, 0), (1, 8, 2, 1024, 256, 256),
+                    (2, 4, 2, 192, 40, 0), (1, 4, 4, 256, 320, 0),
+                    (1, 2, 1, 128, 512, 0)]
+FLASH_SHAPES += FLASH_NEW_SHAPES
 # SSD (b, L, H, P, N, chunk) — the reference sweep (:78-93), ragged lengths
 # (L 300; L 1100, five chunks), batch 1 at L 4096 (the carry crosses 16
 # chunks), P 12 and N 10 (the kernels' element-by-element copies) and
 # zamba2-1.2b's prefill (last: the timed shape)
+# every P, N and chunk: Mamba-2 2.7B's layer (arXiv:2405.21060: d_model
+# 2560, expand 2, head dim 64, d_state 128), N 128 and P 128 on a ragged L,
+# slices of both (P 160, N 192), chunks above 256
+SSD_NEW_SHAPES = [(1, 4096, 80, 64, 128, 256), (2, 1100, 4, 128, 128, 256),
+                  (1, 512, 2, 160, 192, 128), (1, 2048, 4, 64, 64, 512),
+                  (1, 1000, 2, 32, 16, 1000)]
 SSD_SHAPES = [(1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32),
               (1, 256, 2, 64, 64, 64), (2, 96, 3, 16, 8, 32),
               (1, 300, 4, 64, 64, 256), (1, 1100, 4, 64, 64, 256),
               (1, 4096, 2, 64, 64, 256), (1, 64, 2, 12, 10, 16),
-              (4, 2048, 64, 64, 64, 256)]
+              *SSD_NEW_SHAPES, (4, 2048, 64, 64, 64, 256)]
+# decays whose exp(a_end) underflows to 0, at N 64 and at N 128
+SSD_UNDERFLOW = {"underflow": (1, 1024, 4, 64, 64, 256),
+                 "underflow128": (1, 1024, 4, 64, 128, 256)}
 FLASH_BAR = {"float32": 2e-5, "bfloat16": 2e-2}   # abs and rel, :38-53
 SSD_BAR = {"float32": 2e-5, "bfloat16": 5e-2}     # of max |y|, :89-93
 SSD_SPLIT_BAR = 1e-4      # of max |y|: bf16 B, C with an fp32 output
@@ -1482,15 +1566,27 @@ def ssd_operands(torch, shape, dtype, gen, dt_scale=1.0):
     return xdt, a, Bm, Cm
 
 
-def lm_kernel_checks(torch, FA, SSD, ref, gen, errs):
+def lm_kernel_checks(torch, FA, SSD, ref, gen, errs, flash_shapes=None,
+                     ssd_shapes=None):
     """Hold flash attention and the SSD scan against their plain versions
-    on the card at FLASH_SHAPES and SSD_SHAPES, fp32 and bf16, at the
-    reference's bars; record each kernel's largest absolute error."""
+    on the card at FLASH_SHAPES and SSD_SHAPES (or the shapes given), fp32
+    and bf16, at the reference's bars, each call's launches against its
+    plan's; record each kernel's largest absolute error."""
+    if flash_shapes is None:
+        flash_shapes = FLASH_SHAPES
+    if ssd_shapes is None:
+        ssd_shapes = SSD_SHAPES + list(SSD_UNDERFLOW)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        for shape in FLASH_SHAPES:
+        for shape in flash_shapes:
             q, k, v = flash_operands(torch, shape, dtype, gen)
+            before = FA.flash_attention.launches
             got = FA.flash_attention(q, k, v, True, shape[5])
+            pl = FA.plan(shape[4], dtype)
+            if FA.flash_attention.launches - before != pl["launches"]:
+                raise AssertionError(f"flash_attention {name} {shape}: "
+                                     f"{FA.flash_attention.launches - before}"
+                                     f" launches, the plan {pl['launches']}")
             want = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                        v.transpose(1, 2), True,
                                        shape[5]).transpose(1, 2)
@@ -1499,23 +1595,30 @@ def lm_kernel_checks(torch, FA, SSD, ref, gen, errs):
             excess = (diff - FLASH_BAR[name] * want.float().abs()).max()
             log(f"check flash_attention {name} (B, H, Hk, L, D, window) "
                 f"{shape}: max |kernel - plain| = {diff.max().item()} (bar "
-                f"{FLASH_BAR[name]} abs + rel, excess {excess.item()})")
+                f"{FLASH_BAR[name]} abs + rel, excess {excess.item()}); "
+                f"route {pl['route']} {pl['template']}, "
+                f"{pl['launches']} launch(es)")
             if not excess.item() <= FLASH_BAR[name]:
                 raise AssertionError(f"flash_attention {name} {shape}: "
                                      f"kernel differs from plain")
             errs["flash_attention"] = max(errs["flash_attention"],
                                           diff.max().item())
             del q, k, v, got, want, diff
-        for shape in SSD_SHAPES + ["underflow"]:
-            if shape == "underflow":    # exp(a_end) underflows to 0
-                shape = (1, 1024, 4, 64, 64, 256)
+        for shape in ssd_shapes:
+            if shape in SSD_UNDERFLOW:    # exp(a_end) underflows to 0
+                shape = SSD_UNDERFLOW[shape]
                 xdt, a, Bm, Cm = ssd_operands(torch, shape, dtype, gen,
                                               dt_scale=40.0)
             else:
                 xdt, a, Bm, Cm = ssd_operands(torch, shape, dtype, gen)
             Q = min(shape[5], shape[1])
+            before = SSD.ssd_scan.launches
             got, acum, state = SSD.ssd_scan(xdt, a, Bm, Cm, Q, dtype,
                                             intermediates=True)
+            if SSD.ssd_scan.launches - before != 1:
+                raise AssertionError(f"ssd_scan {name} {shape}: "
+                                     f"{SSD.ssd_scan.launches - before} "
+                                     f"launches")
             want32 = ref.ssd_recurrence(xdt, a, Bm, Cm)
             want = want32.to(dtype).float()
             # bf16 B and C with an fp32 output: the tensor cores' products
@@ -1661,6 +1764,299 @@ def lm_kernel_times(torch, FA, SSD, ref, gen):
             f"plain_ms={plain} bound_ms={b_ms} ({b_by}, {flops:.4g} flops)")
         del xdt, a, Bm, Cm
     return timed
+
+
+# -- every shape the reference's kernels take ------------------------------
+# sparse leaves (elements, top-k fraction): the old one-segment limit + 1,
+# zamba2-1.2b's embedding, and 2**30 + 3 (at 1%, so that the plain
+# version's memory stays in bounds); K clients
+SPARSE_NEW_LEAVES = [(3350 * 8192 + 1, 0.1), (65536000, 0.1),
+                     (2 ** 30 + 3, 0.01)]
+SPARSE_NEW_K = 4
+SPARSE_ZAMBA_FRAC = 0.1
+# the model path: zamba2-1.2b with Mamba-2's own state size, cut to 2
+# layers, at B 1 x L 2048
+DSTATE_LAYERS, DSTATE_B, DSTATE_L = 2, 1, 2048
+
+
+def sparse_bound(n, pairs, vbytes, obytes):
+    """(bound_ms, bound_by) of one sparse reduce of `pairs` (value of
+    `vbytes` + 4-byte index) into a leaf of n elements of `obytes`: one
+    multiply and one add a pair."""
+    t_bytes = (pairs * (vbytes + 4) + n * obytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * pairs / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def unique_draw(torch, n, k, clients, gen):
+    """(clients, k) int32 indices into [0, n), each row without repeats (a
+    top-k wire's), drawn on the card: a random order of k strata of n // k
+    elements, one element of each."""
+    w = n // k
+    rows = [torch.randperm(k, generator=gen, device="cuda") * w
+            + torch.randint(0, w, (k,), generator=gen, device="cuda")
+            for _ in range(clients)]
+    return torch.stack(rows).to(torch.int32)
+
+
+def sparse_wire(torch, n, frac, dtype, gen):
+    """K top-k-like (values, indices) wires of one leaf and the weights."""
+    k = max(1, math.ceil(frac * n))
+    idx = unique_draw(torch, n, k, SPARSE_NEW_K, gen)
+    vals = torch.randn((SPARSE_NEW_K, k), generator=gen, device="cuda").to(
+        dtype)
+    w = torch.rand(SPARSE_NEW_K, generator=gen, device="cuda") * 0.8 + 0.2
+    return vals, idx, w
+
+
+def shapes_phase(torch, np, gen, errs):
+    """Every shape the reference's Pallas kernels take, on the card (the
+    flash, SSD and KD shapes are checked in lm_kernel_checks and
+    kd_kernel_checks): (a) the sparse reduce on leaves that need segments,
+    fp32 and bf16, bit for bit against its plain version, one launch a
+    call; (b) aggregation.sparse_weighted_mean over zamba2-1.2b's 74 leaves
+    with K 4 top-k 10% wires, bit for bit; (c) each new shape of the four
+    kernels timed by cuda_ms beside its bound (flash also beside
+    scaled_dot_product_attention); (d) zamba2-1.2b with d_state 128
+    at 2 layers, B 1 x L 2048: the kernel route against the plain route,
+    fp32 and bf16, within the serve phase's bars, one ssd_scan a Mamba2
+    block, and the SSD's three kernels in the profile. -> the records of
+    (c)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import tree as T
+    from repro_torch.federated import aggregation
+    from repro_torch.federated.compression import SparseLeaf
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import kd_loss as KD
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sparse_reduce as SR
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models.registry import get_model
+    cgen = torch.Generator(device="cuda").manual_seed(27)
+    records = []
+    t0 = time.perf_counter()
+
+    # (a) the sparse reduce on wide leaves
+    for n, frac in SPARSE_NEW_LEAVES:
+        for dtype in (torch.float32, torch.bfloat16):
+            vals, idx, w = sparse_wire(torch, n, frac, dtype, cgen)
+            before = SR.sparse_reduce_leaves.launches
+            got = SR.sparse_reduce(vals, idx, w, (n,), dtype)
+            launches = SR.sparse_reduce_leaves.launches - before
+            want = ref.sparse_weighted_delta_reduce(vals, idx, w, (n,), dtype)
+            torch.cuda.synchronize()
+            bits = torch.int16 if dtype is torch.bfloat16 else torch.int32
+            same = torch.equal(got.view(bits), want.view(bits))
+            e = (got.float() - want.float()).abs().max().item()
+            del want
+            log(f"check sparse_reduce {dtype} one leaf of {n} elements "
+                f"({len(SR.segments(n))} segments), K {SPARSE_NEW_K} x k "
+                f"{vals.shape[1]}: bit for bit {same}, max |kernel - plain| "
+                f"= {e}, {launches} launch")
+            if not (same and launches == 1):
+                raise AssertionError(f"sparse_reduce {dtype} n={n}: differs "
+                                     f"from plain or launched {launches}")
+            errs["sparse_reduce"] = max(errs["sparse_reduce"], e)
+            b_ms, b_by = sparse_bound(n, vals.numel(), vals.element_size(),
+                                      dtype.itemsize)
+            rec = {"kernel": "sparse_reduce", "shape": [n, vals.shape[1]],
+                   "dtype": str(dtype), "ms": cuda_ms(
+                       torch, lambda: SR.sparse_reduce(vals, idx, w, (n,),
+                                                       dtype)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            records.append(rec)
+            log(f"time {json.dumps(rec)}")
+            del vals, idx, w, got
+            torch.cuda.empty_cache()
+
+    log(f"shapes (a): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    # (b) the sparse aggregate over zamba2-1.2b's leaves
+    zcfg = get_arch(ZAMBA)
+    like = get_model(zcfg).init(0, zcfg, device="meta")
+    leaves = T.leaves(like)
+    for dtype in (torch.float32, torch.bfloat16):
+        wire_leaves = []
+        for leaf in leaves:
+            n = leaf.numel()
+            k = max(1, math.ceil(SPARSE_ZAMBA_FRAC * n))
+            wire_leaves.append(SparseLeaf(
+                torch.randn((SPARSE_NEW_K, k), generator=cgen,
+                            device="cuda").to(dtype),
+                unique_draw(torch, n, k, SPARSE_NEW_K, cgen)))
+        order = iter(wire_leaves)
+        wire = T.tree_map(lambda _leaf: next(order), like)
+        like_d = T.tree_map(lambda l: torch.empty(l.shape, dtype=dtype,
+                                                  device="meta"), like)
+        weights = torch.rand(SPARSE_NEW_K, generator=cgen, device="cuda") + 0.5
+        ops.reset_launch_counts()
+        got = aggregation.sparse_weighted_mean(wire, weights, like_d)
+        launches = ops.launch_counts()["sparse_reduce"]
+        wn = weights.float() / torch.clamp(torch.sum(weights), min=1e-12)
+        same, worst = True, 0.0
+        for g_, wl, l in zip(T.leaves(got), wire_leaves, T.leaves(like_d)):
+            want = ref.sparse_weighted_delta_reduce(wl.values, wl.indices, wn,
+                                                    tuple(l.shape), dtype)
+            bits = torch.int16 if dtype is torch.bfloat16 else torch.int32
+            same &= torch.equal(g_.contiguous().view(bits), want.view(bits))
+            worst = max(worst, (g_.float() - want.float()).abs().max().item())
+            del want
+        torch.cuda.synchronize()
+        pairs = sum(w_.values.numel() for w_ in wire_leaves)
+        log(f"check sparse_weighted_mean {dtype} over {ZAMBA}'s "
+            f"{len(wire_leaves)} leaves ({pairs} pairs, K {SPARSE_NEW_K}, "
+            f"top-k {SPARSE_ZAMBA_FRAC}): bit for bit {same}, max |kernel - "
+            f"plain| = {worst}, {launches} sparse_reduce launch")
+        if not (same and launches == 1):
+            raise AssertionError(f"sparse_weighted_mean {dtype} over {ZAMBA}: "
+                                 f"differs from plain or launched {launches}")
+        del wire, wire_leaves, got
+        torch.cuda.empty_cache()
+
+    log(f"shapes (b): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    # (c) the new shapes' times
+    F = torch.nn.functional
+    for shape in FLASH_NEW_SHAPES:
+        for dtype, eb in ((torch.float32, 4), (torch.bfloat16, 2)):
+            q, k, v = flash_operands(torch, shape, dtype, gen)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            b_ms, b_by, _ = flash_bound(*shape, elem_bytes=eb)
+            pl = FA.plan(shape[4], dtype)
+            rec = {"kernel": "flash_attention", "shape": list(shape),
+                   "dtype": str(dtype), "route": pl["route"],
+                   "launches": pl["launches"],
+                   "ms": cuda_ms(torch, lambda: FA.flash_attention(
+                       q, k, v, True, shape[5])),
+                   "library_ms": cuda_ms(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, attn_mask=None if not shape[5]
+                           else window_mask(torch, shape[3], shape[5]),
+                           is_causal=not shape[5], enable_gqa=True)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            records.append(rec)
+            log(f"time {json.dumps(rec)}")
+            del q, k, v, qt, kt, vt
+    for shape in SSD_NEW_SHAPES + [SSD_UNDERFLOW["underflow128"]]:
+        for dtype, eb in ((torch.float32, 4), (torch.bfloat16, 2)):
+            xdt, a, Bm, Cm = ssd_operands(torch, shape, dtype, gen)
+            Q = min(shape[5], shape[1])
+            b_ms, b_by, _ = ssd_bound(*shape, elem_bytes=eb)
+            rec = {"kernel": "ssd_scan", "shape": list(shape),
+                   "dtype": str(dtype),
+                   "ms": cuda_ms(torch, lambda: SSD.ssd_scan(
+                       xdt, a, Bm, Cm, Q, dtype)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            records.append(rec)
+            log(f"time {json.dumps(rec)}")
+            del xdt, a, Bm, Cm
+    for dtype, eb in ((torch.float32, 4), (torch.bfloat16, 2)):
+        for rows, n_classes, groups in kd_edge_shapes(KD, eb)[8:]:
+            s_, t_, y_, rho_, g_ = kd_operands(torch, rows, n_classes,
+                                               groups, dtype, gen)
+            st = KD.kd_loss(s_, t_, y_, rho_, KD_LAM, KD_TAU)[3]
+            rec = {"kernel": "kd_loss", "shape": [rows, n_classes, groups],
+                   "dtype": str(dtype),
+                   "route": KD.fwd_plan(rows, n_classes, eb)[0],
+                   "ms": cuda_ms(torch, lambda: KD.kd_loss(
+                       s_, t_, y_, rho_, KD_LAM, KD_TAU)),
+                   "bound_ms": kd_bound("kd_loss", rows, n_classes, groups,
+                                        eb)[0],
+                   "bwd_ms": cuda_ms(torch, lambda: KD.kd_loss_bwd(
+                       s_, t_, y_, rho_, st, g_, KD_LAM, KD_TAU)),
+                   "bwd_bound_ms": kd_bound("kd_loss_bwd", rows, n_classes,
+                                            groups, eb)[0]}
+            records.append(rec)
+            log(f"time {json.dumps(rec)}")
+            del s_, t_, y_, rho_, g_, st
+
+    log(f"shapes (c): {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    # (d) zamba2-1.2b with d_state 128, 2 layers, kernel route vs plain
+    cfg = replace(zcfg, ssm=replace(zcfg.ssm, d_state=128),
+                  n_layers=DSTATE_LAYERS,
+                  block_pattern=zcfg.block_pattern[:DSTATE_LAYERS])
+    model = get_model(cfg)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (DSTATE_B, DSTATE_L))).cuda()
+    for dtype, bar in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+        params = model.init(0, cfg, dtype=dtype, device="cuda")
+
+        def fwd(use_pallas):
+            with torch.no_grad():
+                return model.forward(params, {"tokens": toks}, cfg,
+                                     use_pallas)[0].float()
+        got = counted_forward(ops, lambda: fwd(True), DSTATE_LAYERS, 0, {
+            "ssd_scan": 0, "flash_attention": 0}, tag="d_state 128")
+        want = fwd(False)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fwd(True)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        ssd = [k_ for k_ in ("ssd_states", "ssd_carry", "ssd_outputs")
+               if any(k_ in nm for nm in names)]
+        log(f"check d_state 128 {ZAMBA} {DSTATE_LAYERS} layers {dtype} B "
+            f"{DSTATE_B} L {DSTATE_L}: logits {tuple(got.shape)}, max |kernel "
+            f"- plain route| = {err} = {err / scale} of max |logit| {scale} "
+            f"(bar {bar}); SSD kernels in the profile {ssd}")
+        if not (torch.isfinite(got).all() and err <= bar * scale
+                and len(ssd) == 3):
+            raise AssertionError(f"d_state 128 {dtype}: the routes differ or "
+                                 f"the SSD kernels did not run")
+        del params, got, want
+    log(f"shapes (d): {time.perf_counter() - t0:.1f}s")
+    return records
+
+
+def window_mask(torch, L, window):
+    """The causal sliding-window mask as scaled_dot_product_attention takes
+    it (True: attend)."""
+    i = torch.arange(L, device="cuda")
+    return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+
+def kernel_shapes_main():
+    """--kernel-shapes: build, then only the checks and times of the shapes
+    past the kernels' single-tile routes (kd_edge_shapes' split-route
+    shapes, FLASH_NEW_SHAPES, SSD_NEW_SHAPES, shapes_phase), and one JSON
+    line of the times."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import kd_loss as KD
+    from repro_torch.kernels import ssd_scan as SSD
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    for rec in build.build_all():
+        usage = ", ".join(f"{n} {r} registers" + (f" {sp} B spilled" if sp
+                                                   else "")
+                          for n, r, sp in ptxas_usage(rec["log"]))
+        log(f"build: {Path(rec['source']).name} built={rec['built']} "
+            f"in {rec['seconds']:.1f}s; {usage}")
+    gen = torch.Generator().manual_seed(0)
+    errs = {name: 0.0 for name in ops.KERNELS}
+    kd_kernel_checks(torch, KD, ref, gen, errs, only_new=True)
+    lm_kernel_checks(torch, FA, SSD, ref, gen, errs, FLASH_NEW_SHAPES,
+                     SSD_NEW_SHAPES + ["underflow128"])
+    records = shapes_phase(torch, np, gen, errs)
+    log(json.dumps({"card": smi, "errs": errs, "times": records,
+                    "seconds": time.perf_counter() - t0}))
+    return 0
 
 
 def check_tokens(tag, got, want, ref_logits, bound):
@@ -4393,8 +4789,15 @@ def main():
     sweep_kernel_checks(torch, FU, WR, CP, SR, ref, gen, resnet_shapes,
                         errs)
     update_kernel_checks(torch, FU, ref, gen, resnet_shapes, errs)
+    t0 = time.perf_counter()
     kd_kernel_checks(torch, KD, ref, gen, errs)
+    log(f"kd checks: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     lm_kernel_checks(torch, FA, SSD, ref, gen, errs)
+    log(f"lm checks: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    shapes_phase(torch, np, gen, errs)
+    log(f"shapes: {time.perf_counter() - t0:.1f}s")
 
     cnn_sizes = [int(torch.Size(s).numel()) for s in cnn_shapes]
     timed = {}
@@ -4949,6 +5352,11 @@ if __name__ == "__main__":
                         help="only build and time the SSD scan, QSGD, the "
                              "update and select sweeps and the KD forward "
                              "(kernel_times) and print them as one JSON line")
+    parser.add_argument("--kernel-shapes", action="store_true",
+                        help="only build and check and time the shapes that "
+                             "the reference's kernels take beyond the port's "
+                             "first limits (shapes_phase) and print the "
+                             "times as one JSON line")
     parser.add_argument("--pod-round-counts", action="store_true",
                         help="only count phase 15's mixed round on the meta "
                              "device and print the counts as one JSON line")
@@ -4958,4 +5366,6 @@ if __name__ == "__main__":
     args = parser.parse_args()
     if args.pod_round_counts:
         sys.exit(pod_round_counts_main(args.src))
+    if args.kernel_shapes:
+        sys.exit(kernel_shapes_main())
     sys.exit(kernel_times_main(args.src) if args.kernel_times else main())

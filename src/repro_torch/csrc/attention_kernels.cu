@@ -134,26 +134,138 @@ struct Cfg {
   static constexpr size_t kSmem = sizeof(float) * kFloats;
 };
 
-// Copy keys [k0, k0 + kBK) of one kv head into the tile (row stride ld).
-template <int D>
+// Copy keys [k0, k0 + kBK) of one kv head into the tile (row stride ld),
+// its columns at or past the head dim `dh` (<= D, a multiple of 4) zero.
+template <int D, bool kExact>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const float* g,
-                                          int64_t row, int k0, int L) {
+                                          int64_t row, int k0, int L,
+                                          int dh) {
   constexpr int kPerRow = D / 4;
 #pragma unroll
   for (int e = threadIdx.x; e < kBK * kPerRow; e += kThreads) {
     const int key = e / kPerRow, c4 = e % kPerRow, kpos = k0 + key;
-    const bool in = kpos < L;
+    const bool in = kpos < L && (kExact || 4 * c4 < dh);
     cp_async16(smem_u32(dst + key * ld + 4 * c4),
                g + (in ? kpos * row + 4 * c4 : 0), in ? 16 : 0);
   }
 }
 
-template <int D>
+// The three steps of a key tile that both CUDA-core kernels share.  Thread
+// (r, c) of the 16 x 16 grid owns score rows r + 16 i (i < kRM), keys
+// c + 16 j (j < 4) and output columns 4c + 64 g (g < kCG).
+//
+// s[i][j] += Q[r + 16 i] · K[c + 16 j] over n columns (a multiple of 4),
+// the rows of Q and K ld floats apart.
+template <int kRM>
+__device__ __forceinline__ void qk_tile(float (&s)[kRM][4],
+                                        const float* Qs, const float* Kt,
+                                        int ld, int n, int r, int c) {
+#pragma unroll 4
+  for (int d = 0; d < n; d += 4) {
+    float4 qa[kRM], kk[4];
+#pragma unroll
+    for (int i = 0; i < kRM; ++i)
+      qa[i] = *reinterpret_cast<const float4*>(Qs + (r + 16 * i) * ld + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      kk[j] = *reinterpret_cast<const float4*>(Kt + (c + 16 * j) * ld + d);
+#pragma unroll
+    for (int i = 0; i < kRM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(qa[i].x, kk[j].x, s[i][j]);
+        s[i][j] = fmaf(qa[i].y, kk[j].y, s[i][j]);
+        s[i][j] = fmaf(qa[i].z, kk[j].z, s[i][j]);
+        s[i][j] = fmaf(qa[i].w, kk[j].w, s[i][j]);
+      }
+  }
+}
+
+// The online softmax of a tile's scores (scaled by log2(e)/sqrt(D)): each
+// row's running max m and sum l, its accumulator rescaled, and the
+// probabilities into P (rows ld floats apart); masks only where `edge`.
+template <int kRM, int kAcc>
+__device__ __forceinline__ void softmax_tile(
+    const float (&s)[kRM][4], float (&m)[kRM], float (&l)[kRM],
+    float (&acc)[kRM][kAcc], float* Ps, int ld, int q0, int k0, int r,
+    int c, bool edge, int L, int causal, int window) {
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    const int qpos = q0 + r + 16 * i;
+    bool ok[4];
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ok[j] = !edge || visible(qpos, k0 + c + 16 * j, L, causal, window);
+      if (ok[j]) mx = fmaxf(mx, s[i][j]);
+    }
+#pragma unroll
+    for (int off = 8; off; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m[i], mx);
+    const float corr = exp2f(m[i] - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = ok[j] ? exp2f(s[i][j] - m_new) : 0.f;
+      rs += p;
+      Ps[(r + 16 * i) * ld + c + 16 * j] = p;
+    }
+#pragma unroll
+    for (int off = 8; off; off >>= 1)
+      rs += __shfl_xor_sync(0xffffffffu, rs, off);
+    l[i] = l[i] * corr + rs;
+    m[i] = m_new;
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) acc[i][j] *= corr;
+  }
+}
+
+// acc += P·V over a tile of kBK keys, P's rows ld floats apart, V's vld.
+template <int kRM, int kCG>
+__device__ __forceinline__ void pv_tile(float (&acc)[kRM][4 * kCG],
+                                        const float* Ps, int ld,
+                                        const float* Vt, int vld, int r,
+                                        int c) {
+#pragma unroll 4
+  for (int key = 0; key < kBK; key += 4) {
+    float4 pv[kRM];
+#pragma unroll
+    for (int i = 0; i < kRM; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(Ps + (r + 16 * i) * ld + key);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      float4 vv[kCG];
+#pragma unroll
+      for (int g = 0; g < kCG; ++g)
+        vv[g] = *reinterpret_cast<const float4*>(Vt + (key + t) * vld +
+                                                 64 * g + 4 * c);
+#pragma unroll
+      for (int i = 0; i < kRM; ++i) {
+        const float p = t == 0 ? pv[i].x : t == 1 ? pv[i].y
+                      : t == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+        for (int g = 0; g < kCG; ++g) {
+          acc[i][4 * g + 0] = fmaf(p, vv[g].x, acc[i][4 * g + 0]);
+          acc[i][4 * g + 1] = fmaf(p, vv[g].y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(p, vv[g].z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(p, vv[g].w, acc[i][4 * g + 3]);
+        }
+      }
+    }
+  }
+}
+
+// D: the template's head dim (64 or 128); dh_arg: the operands' (<= D, a
+// multiple of 8), the columns past it zero in shared memory and unwritten.
+// kExact (dh_arg == D) compiles the head dim in.
+template <int D, bool kExact>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int L, int H,
-          int Hk, int causal, int window, float scale_log2) {
+          int Hk, int causal, int window, float scale_log2, int dh_arg) {
   using C = Cfg<D>;
+  const int dh = kExact ? D : dh_arg;
   constexpr int kBQ = C::kBQ, kRM = C::kRM, kQS = C::kQS, kPS = C::kPS;
   constexpr int kCG = C::kCG;
   extern __shared__ float4 smem4[];
@@ -169,21 +281,21 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int r = tid / 16, c = tid % 16;
 
-  const int64_t q_row = (int64_t)H * D, k_row = (int64_t)Hk * D;
-  const float* qb = q + ((int64_t)b * L * H + h) * D;
-  const float* kb = k + ((int64_t)b * L * Hk + hk) * D;
-  const float* vb = v + ((int64_t)b * L * Hk + hk) * D;
-  float* ob = o + ((int64_t)b * L * H + h) * D;
+  const int64_t q_row = (int64_t)H * dh, k_row = (int64_t)Hk * dh;
+  const float* qb = q + ((int64_t)b * L * H + h) * dh;
+  const float* kb = k + ((int64_t)b * L * Hk + hk) * dh;
+  const float* vb = v + ((int64_t)b * L * Hk + hk) * dh;
+  float* ob = o + ((int64_t)b * L * H + h) * dh;
 
   int kt_begin, kt_end;
   key_tiles(q0, kBQ, L, kBK, causal, window, &kt_begin, &kt_end);
-  load_tile<D>(Ks, kQS, kb, k_row, kt_begin * kBK, L);
-  load_tile<D>(Vs, D, vb, k_row, kt_begin * kBK, L);
+  load_tile<D, kExact>(Ks, kQS, kb, k_row, kt_begin * kBK, L, dh);
+  load_tile<D, kExact>(Vs, D, vb, k_row, kt_begin * kBK, L, dh);
   cp_async_commit();
   for (int e = tid; e < kBQ * (D / 4); e += kThreads) {
     const int row = e / (D / 4), c4 = e % (D / 4), qpos = q0 + row;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (qpos < L)
+    if (qpos < L && (kExact || 4 * c4 < dh))
       x = *reinterpret_cast<const float4*>(qb + qpos * q_row + 4 * c4);
     x.x *= scale_log2; x.y *= scale_log2; x.z *= scale_log2;
     x.w *= scale_log2;
@@ -207,8 +319,10 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();
     if (kt < kt_end) {
-      load_tile<D>(Ks + (st ^ 1) * kBK * kQS, kQS, kb, k_row, k0 + kBK, L);
-      load_tile<D>(Vs + (st ^ 1) * kBK * D, D, vb, k_row, k0 + kBK, L);
+      load_tile<D, kExact>(Ks + (st ^ 1) * kBK * kQS, kQS, kb, k_row,
+                           k0 + kBK, L, dh);
+      load_tile<D, kExact>(Vs + (st ^ 1) * kBK * D, D, vb, k_row, k0 + kBK,
+                           L, dh);
     }
     cp_async_commit();
     const float* Kt = Ks + st * kBK * kQS;
@@ -223,85 +337,11 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < kRM; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[kRM], kk[4];
-#pragma unroll
-      for (int i = 0; i < kRM; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(Qs + (r + 16 * i) * kQS + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kk[j] = *reinterpret_cast<const float4*>(Kt + (c + 16 * j) * kQS + d);
-#pragma unroll
-      for (int i = 0; i < kRM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i].x, kk[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, kk[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, kk[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, kk[j].w, s[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      const int qpos = q0 + r + 16 * i;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = !edge || visible(qpos, k0 + c + 16 * j, L, causal, window);
-        if (ok[j]) mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = exp2f(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? exp2f(s[i][j] - m_new) : 0.f;
-        rs += p;
-        Ps[(r + 16 * i) * kPS + c + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4 * kCG; ++j) acc[i][j] *= corr;
-    }
+    qk_tile<kRM>(s, Qs, Kt, kQS, D, r, c);
+    softmax_tile<kRM, 4 * kCG>(s, m, l, acc, Ps, kPS, q0, k0, r, c, edge, L,
+                               causal, window);
     __syncthreads();   // the probabilities are written
-
-#pragma unroll 4
-    for (int key = 0; key < kBK; key += 4) {
-      float4 pv[kRM];
-#pragma unroll
-      for (int i = 0; i < kRM; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(Ps + (r + 16 * i) * kPS + key);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        float4 vv[kCG];
-#pragma unroll
-        for (int g = 0; g < kCG; ++g)
-          vv[g] = *reinterpret_cast<const float4*>(Vt + (key + t) * D +
-                                                   64 * g + 4 * c);
-#pragma unroll
-        for (int i = 0; i < kRM; ++i) {
-          const float p = t == 0 ? pv[i].x : t == 1 ? pv[i].y
-                        : t == 2 ? pv[i].z : pv[i].w;
-#pragma unroll
-          for (int g = 0; g < kCG; ++g) {
-            acc[i][4 * g + 0] = fmaf(p, vv[g].x, acc[i][4 * g + 0]);
-            acc[i][4 * g + 1] = fmaf(p, vv[g].y, acc[i][4 * g + 1]);
-            acc[i][4 * g + 2] = fmaf(p, vv[g].z, acc[i][4 * g + 2]);
-            acc[i][4 * g + 3] = fmaf(p, vv[g].w, acc[i][4 * g + 3]);
-          }
-        }
-      }
-    }
+    pv_tile<kRM, kCG>(acc, Ps, kPS, Vt, D, r, c);
   }
   cp_async_wait_all();
 
@@ -312,6 +352,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int g = 0; g < kCG; ++g) {
+      if (!kExact && 64 * g + 4 * c >= dh) continue;
       float4 y;
       y.x = acc[i][4 * g + 0] / denom;
       y.y = acc[i][4 * g + 1] / denom;
@@ -324,17 +365,18 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int64_t B, int64_t L, int64_t H, int64_t Hk, int causal,
-                   int window, float scale, cudaStream_t st) {
+                   int64_t B, int64_t L, int64_t H, int64_t Hk, int64_t dh,
+                   int causal, int window, float scale, cudaStream_t st) {
   constexpr size_t bytes = Cfg<D>::kSmem;
+  const auto kernel = dh == D ? flash_f32<D, true> : flash_f32<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((L + Cfg<D>::kBQ - 1) / Cfg<D>::kBQ), (unsigned)(B * H));
-  flash_f32<D><<<grid, kThreads, bytes, st>>>(
+  kernel<<<grid, kThreads, bytes, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), (int)L, (int)H,
-      (int)Hk, causal, window, scale * kLog2e);
+      (int)Hk, causal, window, scale * kLog2e, (int)dh);
   return cudaGetLastError();
 }
 
@@ -348,14 +390,20 @@ namespace tc {
 constexpr int kBQ = 128;                // query rows a block: 2 warpgroups
 constexpr int kConsumers = 2;           // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer's
-constexpr int kStages = 3;              // K/V tiles in flight
 
+// D: the template's depth of Q·K^T, a multiple of 16 up to 256 (32, 64, 80,
+// 96, 128, 192, 256); the operands' head dim is at most D, and the TMA
+// fills the columns past it with zeros (their k16 steps add nothing).
 template <int D>
 struct Cfg {
-  static constexpr int kBK = D == 64 ? 128 : 64;   // keys a tile
-  static constexpr int kPanels = D / 64;           // 128-byte panels a row
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kTileBytes = kBK * D * 2;   // one K or V tile
+  static constexpr int kBK = D <= 64 ? 128 : 64;   // keys a tile
+  static constexpr int kPanels = (D + 63) / 64;    // 128-byte panels a row
+  static constexpr int kStages = D > 192 ? 2 : 3;  // K/V tiles in flight
+  // the next tile's S issued before this tile's softmax, where the
+  // registers hold both (not at D 256: O alone is 128 a thread)
+  static constexpr bool kOverlap = D <= 192;
+  static constexpr int kQBytes = kBQ * kPanels * 128;
+  static constexpr int kTileBytes = kBK * kPanels * 128;  // one K or V tile
   // 1024 bytes of slack to align the swizzled tiles to 1024; then Q, the
   // stages (K, V) and the barriers (full and empty a stage, Q's)
   static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
@@ -417,6 +465,7 @@ __device__ __forceinline__ void tile_step(
     int L, int causal, int window, float scale_log2) {
   using C = Cfg<D>;
   constexpr int kBK = C::kBK, kPanels = C::kPanels, kS = kBK / 2;
+  constexpr int kStages = C::kStages;
   const int s = i % kStages;
   if (kNext) {
     const int s1 = (i + 1) % kStages;
@@ -494,16 +543,19 @@ __device__ __forceinline__ void tile_step(
 // the TMA loads (Q once, then each K/V tile into the next stage of a ring
 // of kStages once both consumers have released it) and whose registers go
 // to the consumers (setmaxnreg); warpgroups 0 and 1 are the consumers, each
-// on its 64 query rows, and never wait on each other.
-template <int D>
+// on its 64 query rows, and never wait on each other.  kExact: the head
+// dim is the template's (dh_arg == D), compiled in.  dh_arg comes last in
+// both kernels: placed before the others it changed ptxas's register
+// allocation of the D 64 template (212 B spilled, not 200; 6% slower).
+template <int D, bool kExact>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bf16(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv,
            __nv_bfloat16* __restrict__ o, int L, int H, int Hk, int causal,
-           int window, float scale_log2) {
+           int window, float scale_log2, int dh_arg) {
   using C = Cfg<D>;
-  constexpr int kBK = C::kBK, kPanels = C::kPanels;
+  constexpr int kBK = C::kBK, kPanels = C::kPanels, kStages = C::kStages;
   constexpr int kS = kBK / 2;           // score registers a thread
   extern __shared__ uint8_t smem[];
   const uint32_t sQ = (smem_u32(smem) + 1023) & ~1023u;
@@ -583,12 +635,26 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
   wgmma_wait_all();
   fence_regs(sc);
   int i = 0;
-  for (; i + 1 < n_tiles; ++i) {
-    float sn[kS];
-    tile_step<D, true>(w, sc, sn, sQw, sKV, full, empty, i,
-                       (kt_begin + i) * kBK, L, causal, window, scale_log2);
+  if constexpr (C::kOverlap) {
+    for (; i + 1 < n_tiles; ++i) {
+      float sn[kS];
+      tile_step<D, true>(w, sc, sn, sQw, sKV, full, empty, i,
+                         (kt_begin + i) * kBK, L, causal, window, scale_log2);
 #pragma unroll
-    for (int j = 0; j < kS; ++j) sc[j] = sn[j];
+      for (int j = 0; j < kS; ++j) sc[j] = sn[j];
+    }
+  } else {
+    for (; i + 1 < n_tiles; ++i) {
+      tile_step<D, false>(w, sc, sc, sQw, sKV, full, empty, i,
+                          (kt_begin + i) * kBK, L, causal, window,
+                          scale_log2);
+      const int s1 = (i + 1) % kStages;
+      mbar_wait(full + 8 * s1, ((i + 1) / kStages) & 1);
+      wgmma_fence();
+      issue_s<D>(sc, sQw, sKV + s1 * 2 * C::kTileBytes);
+      wgmma_wait_all();
+      fence_regs(sc);
+    }
   }
   tile_step<D, false>(w, sc, sc, sQw, sKV, full, empty, i,
                       (kt_begin + i) * kBK, L, causal, window, scale_log2);
@@ -598,8 +664,9 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
     w.l[hf] += __shfl_xor_sync(0xffffffffu, w.l[hf], 1);
     w.l[hf] += __shfl_xor_sync(0xffffffffu, w.l[hf], 2);
   }
-  const int64_t q_row = (int64_t)H * D;
-  __nv_bfloat16* ob = o + ((int64_t)b * L * H + h) * D;
+  const int dh = kExact ? D : dh_arg;
+  const int64_t q_row = (int64_t)H * dh;
+  __nv_bfloat16* ob = o + ((int64_t)b * L * H + h) * dh;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int qpos = w.row0 + 8 * hf;
@@ -610,8 +677,12 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int j = 2 * hf; j < 32; j += 4) {
         const int col = 64 * p + 8 * (j / 4) + w.col0;
-        *reinterpret_cast<__nv_bfloat162*>(ob + qpos * q_row + col) =
-            __floats2bfloat162_rn(w.acc[p][j] * inv, w.acc[p][j + 1] * inv);
+        // dh a multiple of 8: col + 1 < dh too; no column past the panels
+        // of an exact multiple of 64
+        if ((kExact && D % 64 == 0) || col < dh)
+          *reinterpret_cast<__nv_bfloat162*>(ob + qpos * q_row + col) =
+              __floats2bfloat162_rn(w.acc[p][j] * inv,
+                                    w.acc[p][j + 1] * inv);
       }
   }
 }
@@ -665,52 +736,238 @@ bool head_map(CUtensorMap* map, const void* ptr, int64_t B, int64_t L,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int64_t B, int64_t L, int64_t H, int64_t Hk, int causal,
-                   int window, float scale, cudaStream_t st) {
+                   int64_t B, int64_t L, int64_t H, int64_t Hk, int64_t dh,
+                   int causal, int window, float scale, cudaStream_t st) {
   constexpr size_t bytes = Cfg<D>::kSmem;
   if (!encode_tiled()) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!head_map(&tq, q, B, L, H, D, kBQ) ||
-      !head_map(&tk, k, B, L, Hk, D, Cfg<D>::kBK) ||
-      !head_map(&tv, v, B, L, Hk, D, Cfg<D>::kBK))
+  if (!head_map(&tq, q, B, L, H, dh, kBQ) ||
+      !head_map(&tk, k, B, L, Hk, dh, Cfg<D>::kBK) ||
+      !head_map(&tv, v, B, L, Hk, dh, Cfg<D>::kBK))
     return cudaErrorInvalidValue;
+  const auto kernel = dh == D ? flash_bf16<D, true> : flash_bf16<D, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((L + kBQ - 1) / kBQ), (unsigned)(B * H));
-  flash_bf16<D><<<grid, kThreads, bytes, st>>>(
+  kernel<<<grid, kThreads, bytes, st>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), (int)L, (int)H, (int)Hk,
-      causal, window, scale * kLog2e);
+      causal, window, scale * kLog2e, (int)dh);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// any head dim: the CUDA cores, one slice of V's columns a launch
+// ---------------------------------------------------------------------------
+// The route for head dims past the templates (fp32 above 128, bf16 above
+// 256). A block is 64 query rows against 64-key tiles, 256 threads as in
+// flash_f32 (thread (r, c) owns rows r + 16 i and keys c + 16 j, and the
+// output columns 4c + 64 g of its slice). Q·K^T sums over the whole head
+// dim in chunks of 64 columns, each chunk of Q (scaled) and of K staged in
+// shared memory by plain loads, in fp32 whatever the operands' type; the
+// softmax is flash_f32's; P stays fp32 for P·V over the slice's DV columns
+// of V, [v0, v0 + DV). The wrapper launches once a slice of at most 256
+// columns, each launch recomputing the same scores: simple and correct,
+// not fast.
+namespace wide {
+
+constexpr int kThreads = 256;
+constexpr int kBQ = 64, kBK = 64, kDC = 64;   // rows, keys, a chunk of D
+constexpr int kLd = kDC + 4;                  // padded row of Q, K, P
+
+template <int DV>
+constexpr size_t kSmem = sizeof(float) * (3 * kBQ * kLd + kBK * DV);
+
+__device__ __forceinline__ float ld(const float* p, int64_t i) { return p[i]; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void st(float* p, int64_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+template <typename T, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wide(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, T* __restrict__ o, int L, int H, int Hk,
+           int dh, int v0, int causal, int window, float scale_log2) {
+  constexpr int kRM = kBQ / 16, kCG = DV / 64;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [kBQ][kLd], scaled
+  float* Ks = Qs + kBQ * kLd;                     // [kBK][kLd]
+  float* Ps = Ks + kBK * kLd;                     // [kBQ][kLd]
+  float* Vs = Ps + kBQ * kLd;                     // [kBK][DV]
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hk);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int tid = threadIdx.x;
+  const int r = tid / 16, c = tid % 16;
+  const int64_t q_row = (int64_t)H * dh, k_row = (int64_t)Hk * dh;
+  const T* qb = q + ((int64_t)b * L * H + h) * dh;
+  const T* kb = k + ((int64_t)b * L * Hk + hk) * dh;
+  const T* vb = v + ((int64_t)b * L * Hk + hk) * dh;
+  T* ob = o + ((int64_t)b * L * H + h) * dh;
+
+  int kt_begin, kt_end;
+  key_tiles(q0, kBQ, L, kBK, causal, window, &kt_begin, &kt_end);
+  float m[kRM], l[kRM], acc[kRM][4 * kCG];
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4 * kCG; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int k0 = kt * kBK;
+    float s[kRM][4];
+#pragma unroll
+    for (int i = 0; i < kRM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < dh; d0 += kDC) {
+      __syncthreads();   // the last chunk's (and tile's) reads are done
+      for (int e = tid; e < kBQ * kDC; e += kThreads) {
+        const int row = e / kDC, col = e % kDC, d = d0 + col;
+        const bool dq = q0 + row < L && d < dh, dk = k0 + row < L && d < dh;
+        Qs[row * kLd + col] =
+            dq ? ld(qb, (q0 + row) * q_row + d) * scale_log2 : 0.f;
+        Ks[row * kLd + col] = dk ? ld(kb, (k0 + row) * k_row + d) : 0.f;
+      }
+      __syncthreads();
+      f32::qk_tile<kRM>(s, Qs, Ks, kLd, kDC, r, c);
+    }
+    const int q_hi = min(q0 + kBQ, L) - 1;
+    const bool edge = (causal && k0 + kBK - 1 > q0) || k0 + kBK > L ||
+                      (window > 0 && k0 <= q_hi - window);
+    f32::softmax_tile<kRM, 4 * kCG>(s, m, l, acc, Ps, kLd, q0, k0, r, c,
+                                    edge, L, causal, window);
+    for (int e = tid; e < kBK * DV; e += kThreads) {
+      const int key = e / DV, col = e % DV, d = v0 + col;
+      Vs[key * DV + col] =
+          k0 + key < L && d < dh ? ld(vb, (k0 + key) * k_row + d) : 0.f;
+    }
+    __syncthreads();   // the probabilities and the V tile are written
+    f32::pv_tile<kRM, kCG>(acc, Ps, kLd, Vs, DV, r, c);
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    const int qpos = q0 + r + 16 * i;
+    if (qpos >= L) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int g = 0; g < kCG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = v0 + 64 * g + 4 * c + e;
+        if (col < dh) st(ob, qpos * q_row + col, acc[i][4 * g + e] / denom);
+      }
+  }
+}
+
+template <typename T, int DV>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int64_t B, int64_t L, int64_t H, int64_t Hk, int64_t dh,
+                   int64_t v0, int causal, int window, float scale,
+                   cudaStream_t st) {
+  constexpr size_t bytes = kSmem<DV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wide<T, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)((L + kBQ - 1) / kBQ), (unsigned)(B * H));
+  flash_wide<T, DV><<<grid, kThreads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), (int)L, (int)H, (int)Hk,
+      (int)dh, (int)v0, causal, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// The slice [v0, v0 + width) of V's columns, width <= 256, in the template
+// of the next multiple of 64.
+template <typename T>
+cudaError_t launch_slice(const void* q, const void* k, const void* v, void* o,
+                         int64_t B, int64_t L, int64_t H, int64_t Hk,
+                         int64_t dh, int64_t v0, int causal, int window,
+                         float scale, cudaStream_t st) {
+  const int64_t width = dh - v0;
+  if (width <= 64)
+    return launch<T, 64>(q, k, v, o, B, L, H, Hk, dh, v0, causal, window,
+                         scale, st);
+  if (width <= 128)
+    return launch<T, 128>(q, k, v, o, B, L, H, Hk, dh, v0, causal, window,
+                          scale, st);
+  if (width <= 192)
+    return launch<T, 192>(q, k, v, o, B, L, H, Hk, dh, v0, causal, window,
+                          scale, st);
+  return launch<T, 256>(q, k, v, o, B, L, H, Hk, dh, v0, causal, window,
+                        scale, st);
+}
+
+}  // namespace wide
+
+// The bf16 route's template for a head dim dh <= 256: the smallest of 32,
+// 64, 80, 96, 128, 192 and 256 at or above dh (flash_attention.py's plan).
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int64_t B, int64_t L, int64_t H, int64_t Hk,
+                        int64_t dh, int causal, int window, float scale,
+                        cudaStream_t st) {
+#define FEDADC_TC(DK)                                                     \
+  if (dh <= DK)                                                           \
+    return tc::launch<DK>(q, k, v, o, B, L, H, Hk, dh, causal, window, \
+                          scale, st);
+  FEDADC_TC(32)
+  FEDADC_TC(64)
+  FEDADC_TC(80)
+  FEDADC_TC(96)
+  FEDADC_TC(128)
+  FEDADC_TC(192)
+  FEDADC_TC(256)
+#undef FEDADC_TC
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
+// dh: the head dim, a multiple of 8 (the wrapper pads another with zeros);
+// v0: the first of V's columns that this launch writes, 0 but on the wide
+// route (fp32 above 128, bf16 above 256: one launch a slice of up to 256
+// columns, flash_attention.py's plan).
 int fedadc_flash_attention(const void* q, const void* k, const void* v,
                            void* o, int64_t B, int64_t L, int64_t H,
-                           int64_t Hk, int64_t D, int causal, int window,
-                           float scale, int dtype, void* stream) {
+                           int64_t Hk, int64_t D, int64_t v0, int causal,
+                           int window, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) {
-    if (D == 64)
-      return tc::launch<64>(q, k, v, o, B, L, H, Hk, causal, window, scale,
-                            st);
-    if (D == 128)
-      return tc::launch<128>(q, k, v, o, B, L, H, Hk, causal, window, scale,
-                             st);
-  } else if (dtype == kF32) {
-    if (D == 64)
-      return f32::launch<64>(q, k, v, o, B, L, H, Hk, causal, window, scale,
-                             st);
-    if (D == 128)
-      return f32::launch<128>(q, k, v, o, B, L, H, Hk, causal, window, scale,
-                              st);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (D < 8 || D % 8 || v0 < 0 || v0 >= D || v0 % 64 ||
+      (dtype != kBF16 && dtype != kF32))
+    return (int)cudaErrorInvalidValue;
+  const bool wide = D > (dtype == kBF16 ? 256 : 128);
+  if (!wide && v0) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (dtype == kBF16)
+    e = wide ? wide::launch_slice<__nv_bfloat16>(q, k, v, o, B, L, H, Hk, D,
+                                                 v0, causal, window, scale, st)
+             : launch_bf16(q, k, v, o, B, L, H, Hk, D, causal, window, scale,
+                           st);
+  else if (wide)
+    e = wide::launch_slice<float>(q, k, v, o, B, L, H, Hk, D, v0, causal,
+                                  window, scale, st);
+  else if (D <= 64)
+    e = f32::launch<64>(q, k, v, o, B, L, H, Hk, D, causal, window, scale,
+                        st);
+  else
+    e = f32::launch<128>(q, k, v, o, B, L, H, Hk, D, causal, window, scale,
+                         st);
+  return (int)e;
 }
 
 const char* fedadc_error_string(int code) {

@@ -57,7 +57,9 @@
 //               share one;
 //   (b) scan    one block takes the exclusive prefix sum of the whole
 //               matrix: every (tile, chunk) gets the first slot of its bin,
-//               so a tile's bin holds its pairs chunk by chunk;
+//               so a tile's bin holds its pairs chunk by chunk; a matrix
+//               above kWideScan entries (a leaf cut into segments) is
+//               scanned by many blocks instead, in three kernels;
 //   (c) scatter each block re-reads its chunk, each warp a contiguous
 //               sixteenth of it.  The warps' per-tile counts, scanned in warp
 //               order, give each warp a cursor per tile; a warp then walks
@@ -362,10 +364,11 @@ __device__ __forceinline__ unsigned same_value_lanes(unsigned v, int bits) {
 using leaf_table::find_leaf;
 using leaf_table::start_of;
 
-// The leaf, its chunk and the leaf's geometry for a block of (a) or (c).
+// The row (a leaf's segment), its chunk and the row's geometry for a block
+// of (a) or (c).
 struct ChunkRef {
-  int leaf, chunk, chunks, tiles, mat0;
-  int64_t n, pair_lo, pair_hi;
+  int leaf, chunk, chunks, tiles, base;
+  int64_t n, mat0, pair_lo, pair_hi;
 };
 
 __device__ __forceinline__ ChunkRef chunk_ref(const SparseTable& t) {
@@ -377,14 +380,22 @@ __device__ __forceinline__ ChunkRef chunk_ref(const SparseTable& t) {
   r.tiles = t.tile_end[r.leaf] - start_of(t.tile_end, r.leaf);
   r.mat0 = start_of(t.mat_end, r.leaf);
   r.n = t.n[r.leaf];
-  const int64_t pairs = t.pair_end[r.leaf] - start_of(t.pair_end, r.leaf);
+  r.base = t.base[r.leaf];
+  const int64_t pairs = (int64_t)t.n_clients * t.k[r.leaf];
   r.pair_lo = (int64_t)r.chunk * kChunk;
   r.pair_hi = min(pairs, r.pair_lo + kChunk);
   return r;
 }
 
+// The index of a pair within the row's segment, or -1 where the pair is
+// absent (past the chunk: ix -1) or its index falls outside the segment.
+__device__ __forceinline__ int in_segment(int ix, const ChunkRef& r) {
+  const int64_t at = (int64_t)ix - r.base;
+  return ix >= 0 && at >= 0 && at < r.n ? (int)at : -1;
+}
+
 // (a) counts[mat0 + tile*chunks + chunk] = in-range pairs of the chunk in
-// the tile.  Dynamic shared memory: one int per tile of the widest leaf.
+// the tile.  Dynamic shared memory: one int per tile of the widest row.
 __global__ void __launch_bounds__(kCountThreads)
 sparse_count_kernel(const __grid_constant__ SparseTable t,
                     int* __restrict__ counts) {
@@ -401,7 +412,8 @@ sparse_count_kernel(const __grid_constant__ SparseTable t,
   __syncthreads();
 #pragma unroll
   for (int it = 0; it < kCountItems; ++it) {
-    if (ix[it] >= 0 && ix[it] < r.n) atomicAdd(&hist[ix[it] >> kTileShift], 1);
+    const int at = in_segment(ix[it], r);
+    if (at >= 0) atomicAdd(&hist[at >> kTileShift], 1);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < r.tiles; i += blockDim.x)
@@ -449,6 +461,48 @@ __device__ int block_exclusive_scan(int* a, int n, int* ws) {
 // bank conflicts.
 __device__ __forceinline__ int padded_at(int e) { return e + (e >> 5); }
 
+// One round of kScanRound entries staged in shared memory (`stage`,
+// padded_at): each thread's kScanItems consecutive entries scanned from
+// `carry`, the exclusive sums written back in place -> the round's total.
+// ws: 32 ints of shared memory.  Ends on a barrier.
+__device__ __forceinline__ int scan_staged_round(int* stage, int* ws,
+                                                 int carry) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int v[kScanItems], local = 0;
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j) {
+    v[j] = stage[padded_at(threadIdx.x * kScanItems + j)];
+    local += v[j];
+  }
+  int x = local;  // inclusive scan of the thread totals within the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) ws[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = ws[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    ws[lane] = w;
+  }
+  __syncthreads();
+  int run = carry + (warp ? ws[warp - 1] : 0) + x - local;
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j) {
+    stage[padded_at(threadIdx.x * kScanItems + j)] = run;
+    run += v[j];
+  }
+  const int total = ws[kScanThreads / 32 - 1];
+  __syncthreads();
+  return total;
+}
+
 // (b) scan[i] = sum of counts[0, i) for i in [0, m]; one block, in rounds
 // of kScanRound entries: loaded coalesced (the next round's loads in
 // flight while this one is scanned), staged in shared memory, scanned
@@ -458,7 +512,6 @@ sparse_scan_kernel(const int* __restrict__ counts, int* __restrict__ scan,
                    int64_t m) {
   extern __shared__ int stage[];  // kScanSmem
   __shared__ int ws[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int next[kScanItems];
 #pragma unroll
   for (int j = 0; j < kScanItems; ++j) {
@@ -477,38 +530,7 @@ sparse_scan_kernel(const int* __restrict__ counts, int* __restrict__ scan,
                         threadIdx.x;
       next[j] = g < m ? counts[g] : 0;
     }
-    int v[kScanItems], local = 0;
-#pragma unroll
-    for (int j = 0; j < kScanItems; ++j) {
-      v[j] = stage[padded_at(threadIdx.x * kScanItems + j)];
-      local += v[j];
-    }
-    int x = local;  // inclusive scan of the thread totals within the warp
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) ws[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int w = ws[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += y;
-      }
-      ws[lane] = w;
-    }
-    __syncthreads();
-    int run = carry + (warp ? ws[warp - 1] : 0) + x - local;
-#pragma unroll
-    for (int j = 0; j < kScanItems; ++j) {
-      stage[padded_at(threadIdx.x * kScanItems + j)] = run;
-      run += v[j];
-    }
-    carry += ws[kScanThreads / 32 - 1];
-    __syncthreads();
+    carry += scan_staged_round(stage, ws, carry);
 #pragma unroll
     for (int j = 0; j < kScanItems; ++j) {
       const int64_t g = base + (int64_t)j * kScanThreads + threadIdx.x;
@@ -517,6 +539,58 @@ sparse_scan_kernel(const int* __restrict__ counts, int* __restrict__ scan,
     __syncthreads();
   }
   if (threadIdx.x == 0) scan[m] = carry;
+}
+
+// (b) above kWideScan entries, the same scan in three kernels, each round
+// of kScanRound entries a block: the rounds' totals (b1), their exclusive
+// scan by sparse_scan_kernel into `offsets` (one block over m / 16384
+// entries), then each round scanned from its offset (b2).
+constexpr int64_t kWideScan = 1 << 20;
+
+__global__ void __launch_bounds__(kScanThreads)
+sparse_round_sums_kernel(const int* __restrict__ counts,
+                         int* __restrict__ sums, int64_t m) {
+  __shared__ int ws[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t base = (int64_t)blockIdx.x * kScanRound;
+  int v = 0;
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j) {
+    const int64_t g = base + (int64_t)j * kScanThreads + threadIdx.x;
+    if (g < m) v += counts[g];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (lane == 0) ws[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int w = ws[lane];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) w += __shfl_xor_sync(0xffffffffu, w, o);
+    if (lane == 0) sums[blockIdx.x] = w;
+  }
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+sparse_scan_rounds_kernel(const int* __restrict__ counts,
+                          int* __restrict__ scan, int64_t m,
+                          const int* __restrict__ offsets) {
+  extern __shared__ int stage[];  // kScanSmem
+  __shared__ int ws[32];
+  const int64_t base = (int64_t)blockIdx.x * kScanRound;
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j) {
+    const int64_t g = base + (int64_t)j * kScanThreads + threadIdx.x;
+    stage[padded_at(j * kScanThreads + threadIdx.x)] = g < m ? counts[g] : 0;
+  }
+  __syncthreads();
+  scan_staged_round(stage, ws, offsets[blockIdx.x]);
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j) {
+    const int64_t g = base + (int64_t)j * kScanThreads + threadIdx.x;
+    if (g < m) scan[g] = stage[padded_at(j * kScanThreads + threadIdx.x)];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) scan[m] = offsets[gridDim.x];
 }
 
 // (c) bins[slot] = (offset in tile, fp32 w_c*v) for every in-range pair,
@@ -565,7 +639,7 @@ sparse_scatter_kernel(const __grid_constant__ SparseTable t,
   for (int it = 0; it < kScatterItems; ++it) {
     const int p = p0 + it * 32;
     if (p < hi) wv[it] = __fmul_rn(w[p / k], wv[it]);
-    if (ix[it] >= r.n) ix[it] = -1;
+    ix[it] = in_segment(ix[it], r);
   }
   unsigned short* mine = cursor + warp * r.tiles;
   for (int i = threadIdx.x; i < kScatterWarps * r.tiles; i += blockDim.x)
@@ -690,18 +764,20 @@ sparse_apply_kernel(const __grid_constant__ SparseTable t,
     store(out, tile_start + i, acc[i]);
 }
 
-// Once per process: each of the four kernels may take its largest dynamic
-// shared memory, and all four ask for one carveout (all shared), so the
-// card need not repartition L1 and shared memory between them.
+// Once per process: each kernel may take its largest dynamic shared
+// memory, and all ask for one carveout (all shared), so the card need not
+// repartition L1 and shared memory between them.
 template <typename TV, typename TO>
 cudaError_t allow_smem() {
   static const cudaError_t once = [] {
     const void* kernels[] = {(const void*)sparse_count_kernel,
                              (const void*)sparse_scan_kernel,
                              (const void*)sparse_scatter_kernel<TV>,
-                             (const void*)sparse_apply_kernel<TO>};
-    const int smem[] = {kMaxSmem, kScanSmem, kMaxSmem, kApplySmem};
-    for (int i = 0; i < 4; ++i) {
+                             (const void*)sparse_apply_kernel<TO>,
+                             (const void*)sparse_scan_rounds_kernel};
+    const int smem[] = {kMaxSmem, kScanSmem, kMaxSmem, kApplySmem,
+                        kScanSmem};
+    for (int i = 0; i < 5; ++i) {
       cudaError_t e = cudaFuncSetAttribute(
           kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize, smem[i]);
       if (e == cudaSuccess)
@@ -718,7 +794,7 @@ cudaError_t allow_smem() {
 template <typename TV, typename TO>
 int launch_sparse_reduce(const int64_t* rows, int64_t n_leaves, const void* w,
                          int64_t n_clients, int* counts, int* scan,
-                         uint2* bins, cudaStream_t s) {
+                         uint2* bins, int* wide, cudaStream_t s) {
   cudaError_t e = allow_smem<TV, TO>();
   if (e != cudaSuccess) return (int)e;
   for (int64_t g = 0; g < n_leaves; g += leaf_table::kMaxLeaves) {
@@ -737,11 +813,23 @@ int launch_sparse_reduce(const int64_t* rows, int64_t n_leaves, const void* w,
         kScatterFixedSmem + (int64_t)kScatterTileSmem * widest;
     if (scatter_smem > kMaxSmem) return (int)cudaErrorInvalidValue;
     const int chunks = t.chunk_end[n - 1], tiles = t.tile_end[n - 1];
-    const int m = t.mat_end[n - 1];
+    const int64_t m = t.mat_end[n - 1];
     if (chunks)
       sparse_count_kernel<<<chunks, kCountThreads, widest * sizeof(int), s>>>(
           t, counts);
-    sparse_scan_kernel<<<1, kScanThreads, kScanSmem, s>>>(counts, scan, m);
+    if (m > kWideScan) {   // the rounds' sums and their scan in `wide`
+      const int64_t rounds = (m + kScanRound - 1) / kScanRound;
+      if (!wide || rounds > INT32_MAX) return (int)cudaErrorInvalidValue;
+      sparse_round_sums_kernel<<<(unsigned)rounds, kScanThreads, 0, s>>>(
+          counts, wide, m);
+      sparse_scan_kernel<<<1, kScanThreads, kScanSmem, s>>>(
+          wide, wide + rounds, rounds);
+      sparse_scan_rounds_kernel<<<(unsigned)rounds, kScanThreads, kScanSmem,
+                                  s>>>(counts, scan, m, wide + rounds);
+      wide += 2 * rounds + 1;
+    } else {
+      sparse_scan_kernel<<<1, kScanThreads, kScanSmem, s>>>(counts, scan, m);
+    }
     if (chunks)
       sparse_scatter_kernel<TV><<<chunks, kScatterThreads, scatter_smem, s>>>(
           t, (const float*)w, scan, bins);
@@ -752,7 +840,7 @@ int launch_sparse_reduce(const int64_t* rows, int64_t n_leaves, const void* w,
     if (e != cudaSuccess) return (int)e;
     counts += m;
     scan += m + 1;
-    bins += t.pair_end[n - 1];
+    bins += t.bin_end[n - 1];
   }
   return (int)cudaGetLastError();
 }
@@ -795,30 +883,34 @@ int fedadc_qsgd_leaves(const int64_t* rows, int64_t n_leaves, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// rows: n_leaves host rows of leaf_table::kSparseCols int64 (values,
-// indices, out, n, k, ends of tiles, chunks, matrix entries and pairs); w
+// rows: n_rows host rows of leaf_table::kSparseCols int64 (values,
+// indices, out, n, k, base, ends of tiles, chunks, matrix entries and
+// bins), a leaf wider than the scatter's widest row cut into segments; w
 // the K fp32 weights; counts, scan and bins device scratch of (per group
-// of kMaxLeaves leaves) m, m + 1 and K*sum(k) entries.
+// of kMaxLeaves rows) m, m + 1 and the bins' end entries; wide, for a
+// group whose m exceeds kWideScan, 2 ceil(m / kScanRound) + 1 entries
+// (null if none does).
 int fedadc_sparse_reduce_leaves(const int64_t* rows, int64_t n_leaves,
                                 const void* w, int64_t n_clients, void* counts,
-                                void* scan, void* bins, int value_dtype,
-                                int out_dtype, void* stream) {
+                                void* scan, void* bins, void* wide,
+                                int value_dtype, int out_dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int* c = (int*)counts;
   int* sc = (int*)scan;
   uint2* b = (uint2*)bins;
+  int* wd = (int*)wide;
   if (value_dtype == kF32 && out_dtype == kF32)
     return launch_sparse_reduce<float, float>(rows, n_leaves, w, n_clients, c,
-                                              sc, b, s);
+                                              sc, b, wd, s);
   if (value_dtype == kF32 && out_dtype == kBF16)
-    return launch_sparse_reduce<float, __nv_bfloat16>(rows, n_leaves, w,
-                                                      n_clients, c, sc, b, s);
+    return launch_sparse_reduce<float, __nv_bfloat16>(
+        rows, n_leaves, w, n_clients, c, sc, b, wd, s);
   if (value_dtype == kBF16 && out_dtype == kF32)
-    return launch_sparse_reduce<__nv_bfloat16, float>(rows, n_leaves, w,
-                                                      n_clients, c, sc, b, s);
+    return launch_sparse_reduce<__nv_bfloat16, float>(
+        rows, n_leaves, w, n_clients, c, sc, b, wd, s);
   if (value_dtype == kBF16 && out_dtype == kBF16)
     return launch_sparse_reduce<__nv_bfloat16, __nv_bfloat16>(
-        rows, n_leaves, w, n_clients, c, sc, b, s);
+        rows, n_leaves, w, n_clients, c, sc, b, wd, s);
   return (int)cudaErrorInvalidValue;
 }
 

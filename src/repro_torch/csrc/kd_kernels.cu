@@ -49,7 +49,18 @@
 //     elements off a 16-byte boundary loaded by threads. The slice is sized
 //     so s and t take at most kSliceBytes, three CTAs an SM (the copies of
 //     one overlap the others' work). The reductions cross the cluster
-//     through distributed shared memory.
+//     through distributed shared memory;
+//   - C above what a cluster stages (max_classes in kd_loss.py: 231,360 in
+//     fp32, 462,784 in bf16): a row split over
+//     cdiv(C, kSplitSlice) CTAs that no cluster ties, in three kernels.
+//     (1) each CTA holds its slice in registers (kSplitPer classes a
+//     thread) and writes its partial log-sum-exps; (2) each CTA merges its
+//     row's partials in one fixed order (every CTA of the row gets the same
+//     bits; the first writes them for (3)), reads its slice again and
+//     writes its partial non-true sums; (3) a warp a row adds the partials
+//     in order and writes the row.  The row is read twice from device
+//     memory, since no running rescale folds the clipped targets into the
+//     first reduction.
 // The maxima and exp-sums are one reduction: each thread forms (max, sum
 // of exp(x - max)) of its values, and partials merge by rescaling the sum
 // of the smaller max (Lse below). The true class's target needs the whole
@@ -95,6 +106,9 @@ constexpr float kClipLo = 1e-9f;
 constexpr int64_t kSliceBytes = 65536;   // s and t of a CTA's slice
 constexpr int kMaxCluster = 8;           // the portable cluster size
 constexpr int64_t kMaxDynSmem = 232448 - 1024;   // less the static part
+// the split route: classes a thread holds, and a CTA's slice
+constexpr int kSplitPer = 32;
+constexpr int64_t kSplitSlice = (int64_t)kSplitPer * kCtaThreads;
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -433,6 +447,159 @@ kd_fwd_cluster_kernel(const T* __restrict__ s, const T* __restrict__ t,
   cluster.sync();   // no CTA leaves while rank 0 reads its shared memory
 }
 
+// -- the split route: a row over CTAs that no cluster ties ------------------
+//
+// Scratch (fp32, the wrapper's): part_lse (rows x parts x 3 Lse), part_acc
+// (rows x parts x 3 floats), row_lse (rows x 3 Lse).  CTA b takes slice
+// b % parts of row b / parts: classes [slice kSplitSlice, ...), thread t
+// the classes t + kCtaThreads j, j < kSplitPer.
+
+// The block's merge of three partials (warp butterflies, then warp 0 over
+// the warps' in warp order) -> every thread's copy of the block's result.
+__device__ __forceinline__ void block_merge(Lse (&p)[3]) {
+  __shared__ Lse warp_part[kCtaWarps][3], result[3];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_merge(p);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) warp_part[warp][k] = p[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      p[k] = lane < kCtaWarps ? warp_part[lane][k] : Lse{-INFINITY, 0.0f};
+    warp_merge(p);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) result[k] = p[k];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 3; ++k) p[k] = result[k];
+}
+
+// (1) the slice's three log-sum-exps, of s, s / tau and t / tau.
+template <typename T>
+__global__ void __launch_bounds__(kCtaThreads)
+kd_split_lse_kernel(const T* __restrict__ s, const T* __restrict__ t,
+                    int64_t C, int64_t parts, float tau,
+                    Lse* __restrict__ part_lse) {
+  const int64_t row = blockIdx.x / parts, part = blockIdx.x % parts;
+  const int64_t lo = part * kSplitSlice;
+  const T* s_row = s + row * C;
+  const T* t_row = t + row * C;
+  const float inv_tau = 1.0f / tau;
+  float sv[kSplitPer], tv[kSplitPer];
+#pragma unroll
+  for (int k = 0; k < kSplitPer; ++k) {
+    const int64_t j = lo + threadIdx.x + (int64_t)kCtaThreads * k;
+    sv[k] = j < C ? load(s_row, j) : -INFINITY;
+    tv[k] = j < C ? load(t_row, j) * inv_tau : -INFINITY;
+  }
+  float ms = -INFINITY, mt = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < kSplitPer; ++k) {
+    ms = fmaxf(ms, sv[k]);
+    mt = fmaxf(mt, tv[k]);
+  }
+  const float mst = ms * inv_tau;
+  const float bs = lse_base(ms), bst = lse_base(mst), bt = lse_base(mt);
+  float zs = 0.0f, zst = 0.0f, zt = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kSplitPer; ++k) {
+    zs += expf(sv[k] - bs);
+    zst += expf(sv[k] * inv_tau - bst);
+    zt += expf(tv[k] - bt);
+  }
+  Lse part_[3] = {{ms, zs}, {mst, zst}, {mt, zt}};
+  block_merge(part_);
+  if (threadIdx.x < 3) part_lse[blockIdx.x * 3 + threadIdx.x] =
+      part_[threadIdx.x];
+}
+
+// (2) the row's log-sum-exps from its partials, then the slice's non-true
+// sums (damped mass, KL, S) given logsumexp(t / tau).
+template <typename T>
+__global__ void __launch_bounds__(kCtaThreads)
+kd_split_terms_kernel(const T* __restrict__ s, const T* __restrict__ t,
+                      const int64_t* __restrict__ labels,
+                      const float* __restrict__ rho, int64_t C,
+                      int64_t parts, int64_t rows_per_group, float tau,
+                      const Lse* __restrict__ part_lse,
+                      float* __restrict__ part_acc, Lse* __restrict__ row_lse) {
+  __shared__ float warp_acc[kCtaWarps][3];
+  const int64_t row = blockIdx.x / parts, part = blockIdx.x % parts;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Lse tot[3] = {{-INFINITY, 0.0f}, {-INFINITY, 0.0f}, {-INFINITY, 0.0f}};
+  for (int64_t q = threadIdx.x; q < parts; q += kCtaThreads) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      tot[k] = lse_merge(tot[k], part_lse[(row * parts + q) * 3 + k]);
+  }
+  block_merge(tot);
+  if (part == 0 && threadIdx.x < 3) row_lse[row * 3 + threadIdx.x] =
+      tot[threadIdx.x];
+  const float inv_tau = 1.0f / tau;
+  const float lse_st = lse_value(tot[1]);
+  const float base_t = lse_base(tot[2].m), inv_zt = 1.0f / tot[2].z;
+  const int64_t y = labels[row];
+  const int64_t lo = part * kSplitSlice;
+  const T* s_row = s + row * C;
+  const T* t_row = t + row * C;
+  const float* rho_row = rho + (row / rows_per_group) * C;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+  for (int k = 0; k < kSplitPer; ++k) {
+    const int64_t j = lo + threadIdx.x + (int64_t)kCtaThreads * k;
+    if (j < C)
+      target_term(load(s_row, j), load(t_row, j) * inv_tau, rho_row[j],
+                  base_t, inv_zt, inv_tau, lse_st, j == y, acc);
+  }
+  warp_sum(acc);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) warp_acc[warp][k] = acc[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    float a = 0.0f;
+    for (int w = 0; w < kCtaWarps; ++w) a += warp_acc[w][threadIdx.x];
+    part_acc[blockIdx.x * 3 + threadIdx.x] = a;
+  }
+}
+
+// (3) a warp a row: the partial sums in order, then the row's outputs.
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+kd_split_finish_kernel(const T* __restrict__ s,
+                       const int64_t* __restrict__ labels, int64_t rows,
+                       int64_t C, int64_t parts,
+                       const float* __restrict__ part_acc,
+                       const Lse* __restrict__ row_lse, float lam, float tau,
+                       float* __restrict__ loss, float* __restrict__ ce_out,
+                       float* __restrict__ kl_out, float* __restrict__ stats) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int64_t q = lane; q < parts; q += 32) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) acc[k] += part_acc[(row * parts + q) * 3 + k];
+  }
+  warp_sum(acc);
+  if (lane == 0) {
+    const int64_t y = labels[row];
+    const bool valid = y >= 0 && y < C;
+    const float s_y = valid ? load(s + row * C, y) : 0.0f;
+    const Lse* tot = row_lse + row * 3;
+    write_row(row, valid, lse_value(tot[0]), lse_value(tot[1]),
+              lse_value(tot[2]), acc, s_y, lam, tau, loss, ce_out, kl_out,
+              stats);
+  }
+}
+
 // -- the backward: one elementwise pass over tiles of the flattened logits --
 //
 // ds_j needs only its own s_j, t_j and rho_j and five statistics of its row,
@@ -669,8 +836,8 @@ inline ClusterPlan cluster_plan(int64_t C, int64_t esize) {
 template <typename T>
 int launch_fwd(const void* s_, const void* t_, const void* labels_,
                const void* rho_, void* loss_, void* ce_, void* kl_,
-               void* stats_, int64_t rows, int64_t C, int64_t rpg, float lam,
-               float tau, cudaStream_t st) {
+               void* stats_, void* scratch, int64_t rows, int64_t C,
+               int64_t rpg, float lam, float tau, cudaStream_t st) {
   const T* s = (const T*)s_;
   const T* t = (const T*)t_;
   const int64_t* labels = (const int64_t*)labels_;
@@ -689,7 +856,23 @@ int launch_fwd(const void* s_, const void* t_, const void* labels_,
     return (int)cudaGetLastError();
   }
   const ClusterPlan p = cluster_plan(C, sizeof(T));
-  if (p.smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
+  if (p.smem > kMaxDynSmem) {   // the split route: three kernels
+    const int64_t parts = (C + kSplitSlice - 1) / kSplitSlice;
+    if (!scratch || rows * parts > INT32_MAX) return (int)cudaErrorInvalidValue;
+    Lse* part_lse = static_cast<Lse*>(scratch);
+    float* part_acc = reinterpret_cast<float*>(part_lse + rows * parts * 3);
+    Lse* row_lse = reinterpret_cast<Lse*>(part_acc + rows * parts * 3);
+    const unsigned ctas = (unsigned)(rows * parts);
+    kd_split_lse_kernel<T><<<ctas, kCtaThreads, 0, st>>>(s, t, C, parts, tau,
+                                                        part_lse);
+    kd_split_terms_kernel<T><<<ctas, kCtaThreads, 0, st>>>(
+        s, t, labels, rho, C, parts, rpg, tau, part_lse, part_acc, row_lse);
+    kd_split_finish_kernel<T>
+        <<<(unsigned)((rows + kWarps - 1) / kWarps), kBlock, 0, st>>>(
+            s, labels, rows, C, parts, part_acc, row_lse, lam, tau, loss, ce,
+            kl, stats);
+    return (int)cudaGetLastError();
+  }
   // once per process: the kernel may take up to kMaxDynSmem
   static const cudaError_t attr = cudaFuncSetAttribute(
       kd_fwd_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -718,19 +901,22 @@ int launch_fwd(const void* s_, const void* t_, const void* labels_,
 
 extern "C" {
 
+// scratch: the split route's partials (kd_loss.py's fwd_plan sizes them:
+// rows x (9 parts + 6) floats), unused (may be null) on the other routes.
 int fedadc_kd_loss_fwd(const void* s, const void* t, const void* labels,
                        const void* rho, void* loss, void* ce, void* kl,
-                       void* stats, int64_t rows, int64_t C,
+                       void* stats, void* scratch, int64_t rows, int64_t C,
                        int64_t rows_per_group, float lam, float tau,
                        int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (rows_per_group < 1) return (int)cudaErrorInvalidValue;
   if (dtype == kF32)
-    return launch_fwd<float>(s, t, labels, rho, loss, ce, kl, stats, rows, C,
-                             rows_per_group, lam, tau, st);
+    return launch_fwd<float>(s, t, labels, rho, loss, ce, kl, stats, scratch,
+                             rows, C, rows_per_group, lam, tau, st);
   if (dtype == kBF16)
     return launch_fwd<__nv_bfloat16>(s, t, labels, rho, loss, ce, kl, stats,
-                                     rows, C, rows_per_group, lam, tau, st);
+                                     scratch, rows, C, rows_per_group, lam,
+                                     tau, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,9 +16,10 @@
 // restarting from 0 at every kMaxLeaves-th leaf.  A C entry point walks
 // the rows kMaxLeaves at a time, builds one struct from each group and
 // launches once per group.  The structs stay under the 4 KB limit of a
-// kernel's parameters (AxpyTable 2.6 KB, SparseTable 3.3 KB, QsgdTable
-// 3.0 KB, UpdateTable 3.3 KB: int32 ends, since 64 leaves of seven int64
-// fields would be 3.6 KB before the kernel's other parameters).
+// kernel's parameters (AxpyTable 2.6 KB, SparseTable 3.8 KB, QsgdTable
+// 3.0 KB, UpdateTable 3.3 KB: int32 ends where they fit, since 64 leaves of
+// seven int64 fields would be 3.6 KB before the kernel's other
+// parameters).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -85,25 +86,35 @@ struct AxpyTable {
   int n_leaves;
 };
 
-// The sparse-reduce table: per leaf its stacked (K, k) wire (values,
-// int32 indices), the dense output of n elements, and three ends: output
-// tiles, chunks of pairs, and entries of the (tile, chunk) count matrix;
-// the fourth, pairs, places the leaf's bins.
-// Host row: values, indices, out, n, k, tile end, chunk end, matrix end,
-// pair end.
-constexpr int kSparseCols = 9;
+// The sparse-reduce table: a row is a segment of a leaf, elements [base,
+// base + n) of it, with the leaf's stacked (K, k) wire (values, int32
+// indices: a row keeps the pairs whose index falls in its segment), the
+// segment's dense output of n elements, and three ends: output tiles,
+// chunks of pairs (every pair of the leaf, in each of its segments), and
+// entries of the (tile, chunk) count matrix; the fourth, bins, reserves K k
+// slots for a leaf's first segment of the group (a leaf's segments share
+// its pairs, so its in-range pairs in them are at most K k).  A leaf of up
+// to the scatter's widest tile count is one segment with base 0.
+// Host row: values, indices, out, n, k, base, tile end, chunk end, matrix
+// end, bin end.
+constexpr int kSparseCols = 10;
 struct SparseTable {
   const void* values[kMaxLeaves];
   const void* indices[kMaxLeaves];
   void* out[kMaxLeaves];
   int64_t n[kMaxLeaves];
+  int64_t mat_end[kMaxLeaves];
   int32_t k[kMaxLeaves];
+  int32_t base[kMaxLeaves];
   int32_t tile_end[kMaxLeaves];
   int32_t chunk_end[kMaxLeaves];
-  int32_t mat_end[kMaxLeaves];
-  int32_t pair_end[kMaxLeaves];
+  int32_t bin_end[kMaxLeaves];
   int n_leaves;
+  int n_clients;
 };
+static_assert(sizeof(SparseTable) <= 4096 - 64,
+              "SparseTable must leave room for the kernels' other parameters "
+              "under the 4 KB limit");
 
 // The QSGD table: per leaf its stacked (rows, n) operand v and draws u,
 // the outputs q and r (byte offsets into the call's output buffer), n, and
@@ -216,7 +227,8 @@ inline bool make_sparse_table(const int64_t* rows, int n, int64_t tile,
                               SparseTable* t) {
   *t = SparseTable{};
   t->n_leaves = n;
-  int64_t tiles = 0, chunks = 0, mat = 0, pairs = 0;
+  t->n_clients = (int)n_clients;
+  int64_t tiles = 0, chunks = 0, mat = 0, bins = 0;
   for (int i = 0; i < n; ++i) {
     const int64_t* r = rows + (int64_t)i * kSparseCols;
     t->values[i] = (const void*)(intptr_t)r[0];
@@ -224,16 +236,28 @@ inline bool make_sparse_table(const int64_t* rows, int n, int64_t tile,
     t->out[i] = (void*)(intptr_t)r[2];
     t->n[i] = r[3];
     t->k[i] = (int32_t)r[4];
-    const int64_t nt = cdiv(r[3], tile), nc = cdiv(n_clients * r[4], chunk);
-    if (r[3] < 0 || r[4] < 0 || r[5] - tiles != nt || r[6] - chunks != nc ||
-        r[7] - mat != nt * nc || r[8] - pairs != n_clients * r[4] ||
-        r[7] > INT32_MAX || r[8] > INT32_MAX)
+    t->base[i] = (int32_t)r[5];
+    const int64_t pairs = n_clients * r[4];
+    const int64_t nt = cdiv(r[3], tile), nc = cdiv(pairs, chunk);
+    // a segment continues the previous row's leaf; the first of a leaf, or
+    // of a group, reserves the leaf's bins
+    const bool first = i == 0 || r[5] == 0;
+    const bool follows = r[5] == 0 || i == 0 ||
+                         (r[0] == rows[(int64_t)(i - 1) * kSparseCols] &&
+                          r[1] == rows[(int64_t)(i - 1) * kSparseCols + 1] &&
+                          r[5] == rows[(int64_t)(i - 1) * kSparseCols + 5] +
+                                      rows[(int64_t)(i - 1) * kSparseCols + 3]);
+    if (r[3] < 0 || r[4] < 0 || r[5] < 0 || r[5] + r[3] > INT32_MAX ||
+        pairs > INT32_MAX || !follows || r[6] - tiles != nt ||
+        r[7] - chunks != nc || r[8] - mat != nt * nc ||
+        r[9] - bins != (first ? pairs : 0) || r[6] > INT32_MAX ||
+        r[7] > INT32_MAX || r[9] > INT32_MAX)
       return false;
-    tiles = r[5], chunks = r[6], mat = r[7], pairs = r[8];
+    tiles = r[6], chunks = r[7], mat = r[8], bins = r[9];
     t->tile_end[i] = (int32_t)tiles;
     t->chunk_end[i] = (int32_t)chunks;
-    t->mat_end[i] = (int32_t)mat;
-    t->pair_end[i] = (int32_t)pairs;
+    t->mat_end[i] = mat;
+    t->bin_end[i] = (int32_t)bins;
   }
   return true;
 }

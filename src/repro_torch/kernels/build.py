@@ -47,21 +47,21 @@ SIGNATURES = {
         "fedadc_threshold_select_leaves": [_P, _I64, _P, _P, _INT, _P],
         "fedadc_qsgd_leaves": [_P, _I64, _P, _P, _INT, _F, _INT, _P],
         "fedadc_sparse_reduce_leaves": [_P, _I64, _P, _I64, _P, _P, _P,
-                                        _INT, _INT, _P],
+                                        _P, _INT, _INT, _P],
     },
     SOURCES[2]: {
-        "fedadc_kd_loss_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                               _I64, _F, _F, _INT, _P],
+        "fedadc_kd_loss_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                               _I64, _I64, _F, _F, _INT, _P],
         "fedadc_kd_loss_bwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                                _F, _F, _F, _I64, _INT, _P],
     },
     SOURCES[3]: {
         "fedadc_flash_attention": [_P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                                   _I64, _INT, _INT, _F, _INT, _P],
+                                   _I64, _I64, _INT, _INT, _F, _INT, _P],
     },
     SOURCES[4]: {
-        "fedadc_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                            _I64, _I64, _I64, _I64, _INT, _INT, _P],
+        "fedadc_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                            _I64, _I64, _I64, _I64, _I64, _INT, _INT, _P],
     },
 }
 # the source of every entry point

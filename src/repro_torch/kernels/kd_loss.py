@@ -20,7 +20,10 @@ the forward's folded.
 The forward reads each row of s and t from device memory once: a warp a
 row with the row in registers up to ``WARP_MAX_C`` classes, above that a
 thread-block cluster a row with the row staged in shared memory
-(``cluster_plan``), up to ``max_classes``.  The backward is one elementwise
+(``cluster_plan``), up to ``max_classes``.  Above that a row is split over
+CTAs that no cluster ties (``fwd_plan``'s split route, three kernels: the
+slices' log-sum-exps, their non-true sums, the rows), which read it twice.
+Any C takes one of the three.  The backward is one elementwise
 pass over tiles of the flattened logits (``bwd_plan``): a row's chunk of
 ``BWD_TILE`` classes, or whole rows where C is at most that.
 
@@ -47,6 +50,7 @@ MAX_CLUSTER = 8          # kMaxCluster
 MAX_DYN_SMEM = 232448 - 1024   # kMaxDynSmem
 BWD_TILE = 1024          # kBwdTile: elements of a backward tile at most
 BWD_MAX_ROWS = 256       # kBwdMaxRows: whole rows of a backward tile
+SPLIT_SLICE = 32 * 256   # kSplitSlice: classes a CTA of the split route
 
 
 def cluster_plan(n_classes: int, esize: int):
@@ -65,6 +69,22 @@ def max_classes(esize: int) -> int:
     CTAs whose slices fill the shared memory a block can have."""
     slice_ = ((MAX_DYN_SMEM // 2 - 16) // esize) // 8 * 8
     return MAX_CLUSTER * slice_
+
+
+def fwd_plan(rows: int, n_classes: int, esize: int):
+    """The forward's route for (rows, C) logits of ``esize`` bytes, as
+    ``launch_fwd`` in the .cu picks it -> (route, CTAs a row, classes a
+    CTA, scratch floats): "warp" (C <= WARP_MAX_C, eight rows a CTA),
+    "cluster" (C <= max_classes, ``cluster_plan``'s CTAs), else "split":
+    cdiv(C, SPLIT_SLICE) CTAs a row and rows·(9·parts + 6) floats of
+    partials.  Each route is one launch of the wrapper."""
+    if n_classes <= WARP_MAX_C:
+        return "warp", 1, n_classes, 0
+    if n_classes <= max_classes(esize):
+        cl, slice_, _ = cluster_plan(n_classes, esize)
+        return "cluster", cl, slice_, 0
+    parts = -(-n_classes // SPLIT_SLICE)
+    return "split", parts, SPLIT_SLICE, rows * (9 * parts + 6)
 
 
 def bwd_plan(rows: int, n_classes: int):
@@ -128,18 +148,20 @@ def kd_loss(s: torch.Tensor, t: torch.Tensor, labels: torch.Tensor,
     (B,) int64 in [0, C), ρ (G, C) fp32 -> (loss, ce, kl, stats): (B,) fp32
     each, stats (B, 5) fp32, all views of one buffer."""
     rows, n_classes, rpg = _check("kd_loss", s, t, labels, rho)
-    if n_classes > WARP_MAX_C and n_classes > max_classes(s.element_size()):
-        raise ValueError(f"kd_loss: {n_classes} classes exceed the "
-                         f"{max_classes(s.element_size())} a cluster of "
-                         f"{MAX_CLUSTER} CTAs stages in {s.dtype}")
-    out = torch.empty((3 + N_STATS) * rows, dtype=torch.float32,
+    route, ctas, _, n_scratch = fwd_plan(rows, n_classes, s.element_size())
+    if route == "split" and rows * ctas >= 2 ** 31:
+        raise ValueError(f"kd_loss: {rows} rows of {n_classes} classes "
+                         f"need 2**31 CTAs or more")
+    out = torch.empty((3 + N_STATS) * rows + n_scratch, dtype=torch.float32,
                       device=s.device)
     loss, ce, kl = out[:rows], out[rows:2 * rows], out[2 * rows:3 * rows]
-    stats = out[3 * rows:].view(rows, N_STATS)
+    stats = out[3 * rows:(3 + N_STATS) * rows].view(rows, N_STATS)
     if rows:
         build.launch("fedadc_kd_loss_fwd", s.data_ptr(), t.data_ptr(),
                      labels.data_ptr(), rho.data_ptr(), loss.data_ptr(),
-                     ce.data_ptr(), kl.data_ptr(), stats.data_ptr(), rows,
+                     ce.data_ptr(), kl.data_ptr(), stats.data_ptr(),
+                     out[(3 + N_STATS) * rows:].data_ptr() if n_scratch
+                     else None, rows,
                      n_classes, rpg, lam, tau, DTYPE_CODE[s.dtype], stream())
         kd_loss.launches += 1
     return loss, ce, kl, stats

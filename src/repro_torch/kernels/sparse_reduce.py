@@ -14,13 +14,18 @@ bit for bit.  Indices outside [0, n) add nothing.
 
 One call takes every leaf of an aggregate as a leaf table
 (``leaf_table.py``) and runs four device kernels (count, scan, scatter,
-apply: the pairs binned by output tile, in order) per group of 64 leaves;
-``sparse_reduce_leaves.launches`` counts calls, one an aggregate.
+apply: the pairs binned by output tile, in order) per group of 64 rows;
+``sparse_reduce_leaves.launches`` counts calls, one an aggregate.  A leaf
+wider than MAX_TILES tiles (the scatter's shared memory) takes one row a
+segment (``segments``): each row keeps the pairs whose index falls in it,
+so the leaf's sum is the same bit for bit, up to the int32 bounds that the
+reference's indices share.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, leaf_table
@@ -28,40 +33,69 @@ from repro_torch.kernels.fedadc_update import DTYPE_CODE, check_operands, stream
 
 TILE = 8192           # output elements a tile: kTile in csrc/compress_kernels.cu
 CHUNK = 8192          # pairs a chunk: kChunk
-# the widest leaf's tiles that the scatter's shared memory holds: 98,432 B
-# for the staged chunk, 40 B a tile
+# the widest row's tiles that the scatter's shared memory holds: 98,432 B
+# for the staged chunk, 40 B a tile.  A wider leaf is cut into segments of
+# at most this many tiles, each a row of the table.
 MAX_TILES = (232448 - 98432) // 40
+INT32_BOUND = 2 ** 31  # a leaf's elements and a leaf's or a group's pairs
+WIDE_SCAN = 1 << 20    # kWideScan: count-matrix entries one block scans
+SCAN_ROUND = 16384     # kScanRound: entries a block of the wide scan takes
+
+
+def segments(n: int):
+    """The segments of a leaf of ``n`` elements -> [(base, length)]: at
+    most MAX_TILES tiles each, tiling [0, n) with no gap or overlap; one
+    (0, n) where the leaf fits the scatter's shared memory."""
+    span = MAX_TILES * TILE
+    return [(base, min(span, n - base)) for base in range(0, n, span)] or [
+        (0, n)]
 
 
 def _plan(shapes, ks, n_clients, esize):
     """What a call over leaves of ``shapes`` with k_l pairs a client needs
-    besides the pointers, computed once per tree: the table rows with each
-    output's byte offset in place of its pointer, the output length, each
-    view's (shape, strides, offset), and the scratch layout (count
-    matrix, its scan with one more entry a group, the bins at 8 B a pair)
-    as int32 offsets and a length; None if no leaf has an element."""
-    fields, units, views, off = [], [], [], 0
-    for shape, k in zip(shapes, ks):
+    besides the pointers, computed once per tree: the table rows (one per
+    segment of a leaf) with each output's byte offset in place of its
+    pointer, the output length, each view's (shape, strides, offset), and
+    the scratch layout (count matrix, its scan with one more entry a
+    group, the bins at 8 B a reserved slot, and for a group whose matrix
+    exceeds WIDE_SCAN entries its rounds' sums and their scan) as int32
+    offsets and a length, None if no leaf has an element; and each row's
+    leaf, None where every leaf is one row.  Raises where an int32 index would
+    overflow: a leaf of 2**31 elements or more, a leaf or a group of rows
+    with 2**31 pairs or more."""
+    fields, units, views, owner, off = [], [], [], [], 0
+    for leaf, (shape, k) in enumerate(zip(shapes, ks)):
         n = math.prod(shape)
-        if n >= 2 ** 31 or leaf_table.cdiv(n, TILE) > MAX_TILES:
-            raise ValueError(f"sparse_reduce: a leaf of {n} elements is "
-                             f"above the kernel's {MAX_TILES * TILE}")
-        tiles = leaf_table.cdiv(n, TILE)
-        chunks = leaf_table.cdiv(n_clients * k, CHUNK)
-        fields.append((0, 0, off * esize, n, k))
-        units.append((tiles, chunks, tiles * chunks, n_clients * k))
+        pairs = n_clients * k
+        if n >= INT32_BOUND or pairs >= INT32_BOUND:
+            raise ValueError(f"sparse_reduce: a leaf of {n} elements and "
+                             f"{pairs} pairs reaches the int32 bound")
+        chunks = leaf_table.cdiv(pairs, CHUNK)
+        for base, length in segments(n):
+            tiles = leaf_table.cdiv(length, TILE)
+            # a leaf's first segment, or the first row of a group, reserves
+            # the leaf's bins in its group
+            first = base == 0 or len(fields) % leaf_table.MAX_LEAVES == 0
+            fields.append((0, 0, (off + base) * esize, length, k, base))
+            owner.append(leaf)
+            units.append((tiles, chunks, tiles * chunks,
+                          pairs if first else 0))
         views.append((shape, leaf_table.strides(shape), off))
         off += leaf_table.padded(n)
     rows, totals = leaf_table.pack(fields, units)
-    if any(t[3] >= 2 ** 31 for t in totals):
-        raise ValueError("sparse_reduce: 2**31 pairs or more in one call")
+    if any(t[3] >= INT32_BOUND for t in totals):
+        raise ValueError("sparse_reduce: 2**31 pairs or more in one group "
+                         "of rows")
     n_mat = sum(t[2] for t in totals)
     scan_at = n_mat
     bins_at = leaf_table.padded(scan_at + n_mat + len(totals))
-    scratch = bins_at + 2 * sum(t[3] for t in totals)
+    wide_at = bins_at + 2 * sum(t[3] for t in totals)
+    scratch = wide_at + sum(2 * leaf_table.cdiv(t[2], SCAN_ROUND) + 1
+                            for t in totals if t[2] > WIDE_SCAN)
     return (rows, off, views,
-            (scan_at, bins_at, scratch) if sum(t[0] for t in totals)
-            else None)
+            (scan_at, bins_at, wide_at, scratch) if sum(t[0] for t in totals)
+            else None,
+            np.array(owner) if len(owner) > len(shapes) else None)
 
 
 def sparse_reduce_leaves(values, indices, weights: torch.Tensor, shapes,
@@ -104,19 +138,24 @@ def sparse_reduce_leaves(values, indices, weights: torch.Tensor, shapes,
         plan = _PLANS.setdefault(key, _plan(
             [tuple(s) for s in shapes], [s[1] for s in wire], n_clients,
             dtype.itemsize))
-    template, total, views, scratch = plan
+    template, total, views, scratch, owner = plan
     out = torch.empty(total, dtype=dtype, device=weights.device)
     if scratch is not None:
-        scan_at, bins_at, length = scratch
+        scan_at, bins_at, wide_at, length = scratch
         buf = torch.empty(length, dtype=torch.int32, device=weights.device)
         base = buf.data_ptr()
         rows = template.copy()
-        rows[:, 0] = [v.data_ptr() for v in values]
-        rows[:, 1] = [i.data_ptr() for i in indices]
+        vp = [v.data_ptr() for v in values]
+        ip = [i.data_ptr() for i in indices]
+        if owner is not None:     # a leaf's segments share its wire
+            vp, ip = np.array(vp)[owner], np.array(ip)[owner]
+        rows[:, 0] = vp
+        rows[:, 1] = ip
         rows[:, 2] += out.data_ptr()
         build.launch("fedadc_sparse_reduce_leaves", rows.ctypes.data,
-                     len(values), weights.data_ptr(), n_clients, base,
+                     len(rows), weights.data_ptr(), n_clients, base,
                      base + 4 * scan_at, base + 4 * bins_at,
+                     base + 4 * wide_at if length > wide_at else None,
                      DTYPE_CODE[vdt], DTYPE_CODE[dtype], stream())
         sparse_reduce_leaves.launches += 1
     return [out.as_strided(shape, st, off) for shape, st, off in views]
